@@ -9,19 +9,33 @@ not hold the port. Phases, each printing one flushed JSON line with its
 seconds:
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: window.cu (nvcc, sm_90a) and coder.cpp (g++), started together;
+  2. build: window.cu and fused.cu (nvcc, sm_90a) and coder.cpp (g++),
+     started together; the ptxas lines of the two kernels;
   3. kernel: the skew-window kernel against its plain version at the
      flagship shapes (B=1, npart=16, h=4, T=56, CC=432 and CC=48), bit for
      bit over a spread of steps on a seeded random bf16 buffer, then timed
-     with CUDA events beside the plain version, one torch.index_select that
-     gathers the same rows (a yardstick the port never calls) and its bound;
-  4. codec: the flagship MSE model (demo/mse/10_192.pkl through the port's
-     loader; a checkout without it fails here) encodes and decodes one smooth 512x1024 image through
-     scan_encode_images / scan_decode_images; the decoded symbol planes
-     must equal the encoded ones and the window kernel must have launched
-     exactly 2 x 12 x nsteps times.
+     (CUPTI device time) beside the plain version, one torch.index_select
+     that gathers the same rows (a yardstick the port never calls) and its
+     bound;
+  4. fused_kernel: the fused window+conv kernel against its plain version
+     at the same shapes (CI=144 and CI=48, cout3=432) and steps, with a
+     seeded random bf16 K, within the module's stated tolerance; two
+     launches bit-identical; timed beside the plain version, the window
+     profile's torch.bmm on pre-gathered taps (a yardstick for the conv
+     half only, which the fused profile never calls) and its bound;
+  5. codec: the flagship MSE model (demo/mse/10_192.pkl through the port's
+     loader; a checkout without it fails here) encodes and decodes one
+     smooth 512x1024 image through scan_encode_images / scan_decode_images
+     (the default window profile); the decoded symbol planes must equal
+     the encoded ones, and the window kernel must have launched exactly
+     2 x 12 x nsteps times and the fused kernel never;
+  6. fused_codec: the same planes through get_scan_codec(...,
+     window_mode="fused").encode_files and scan_decode_images, which
+     picks the profile from the header; equal symbol planes, flags2 =
+     FLAG2_TORCH | FLAG2_TORCH_FUSED, exactly 2 x 12 x nsteps fused
+     launches and no window launch, and the same reconstruction.
 
-With --profile, one more encode of the same plane runs under
+With --profile, one more encode of the same plane per profile runs under
 torch.profiler and a "profile" line gives its kernels by device time.
 Then a {"kernels": [...]} line, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}. Any failed check raises.
@@ -39,6 +53,7 @@ import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+BF16_FLOPS = 989e12                # ... dense bf16 tensor-core peak
 CHECKPOINT = os.path.join("demo", "mse", "10_192.pkl")
 T_START = time.time()
 
@@ -146,6 +161,93 @@ def kernel_phase(wk, geom, G, h, w, nsteps):
     return shapes
 
 
+def fused_kernel_phase(fk, wk, wavefront_scan, geom, G, h, w, nsteps):
+    """Compare, repeat and time the fused kernel at both input widths."""
+    import numpy as np
+    import torch
+    dev = torch.device("cuda")
+    tabs = wk.build_window_tables(geom, h, w, G, nsteps, torch.bfloat16, dev)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    zs = sorted(set(np.linspace(0, nsteps - 1, 12).round().astype(int)))
+    n = 3
+    shapes = {}
+    for CC in (3 * G * 3, G):
+        CI = CC // 3 if CC != G else G
+        buf = torch.randn((1, tabs.Sbuf, CC), generator=gen, device=dev
+                          ).to(torch.bfloat16)
+        k = (torch.randn((3 * G, 45 * CI, n), generator=gen, device=dev)
+             / math.sqrt(45 * CI)).to(torch.bfloat16)
+        bad, max_abs, max_rel = 0, 0.0, 0.0
+        for z in zs:
+            got = fk.fused_cuda(buf, int(z), tabs, k)
+            want = fk.fused_plain(buf, int(z), tabs, k)
+            tol = fk.fused_tolerance(buf, int(z), tabs, k)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"fused kernel gave non-finite cells "
+                                     f"at CI={CI}, step {z}")
+            err = (got - want).abs()
+            bad += int((err > tol).sum())
+            max_abs = max(max_abs, float(err.max()))
+            max_rel = max(max_rel, float((err * fk.TOL / tol.clamp_min(
+                1e-30)).max()))
+        if bad:
+            raise AssertionError(
+                f"fused kernel differs from its plain version beyond "
+                f"{fk.TOL} x sum|products| in {bad} cells at CI={CI} "
+                f"(max abs err {max_abs})")
+        zt = int(zs[len(zs) // 2])
+        a = fk.fused_cuda(buf, zt, tabs, k)
+        b = fk.fused_cuda(buf, zt, tabs, k)
+        torch.cuda.synchronize()
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"two fused launches differ at CI={CI}")
+        # the window profile's conv half: one bmm on pre-gathered taps, with
+        # the same K in that profile's layout (batch u = G-1-g)
+        nb = 3 if CC != G else 1
+        kg = k.float().reshape(3, G, 45 * CI, n).flip(1)
+        kwin = (kg.permute(1, 0, 2, 3).reshape(3 * G, 45 * CI, n) if nb == 3
+                else kg.permute(1, 2, 0, 3).reshape(G, 45 * CI, 3 * n))
+        taps = wavefront_scan.conv_taps(wk.window_plain(buf, zt, tabs), nb)
+        nbytes = fk.fused_bytes(buf, zt, tabs, k)
+        flops = fk.fused_flops(buf, tabs, k)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS * 1e3
+
+        def kern():
+            return fk.fused_cuda(buf, zt, tabs, k)
+
+        def plain():
+            return fk.fused_plain(buf, zt, tabs, k)
+
+        def library():
+            return torch.bmm(taps, kwin)
+
+        shapes[CC] = {
+            "CI": CI, "mismatches": bad, "max_abs_err": max_abs,
+            "max_err_over_abs_sum": max_rel, "tolerance": fk.TOL,
+            "steps": len(zs), "repeat_bit_identical": True,
+            "ms": device_ms(kern, only="fused_kernel"),
+            "wrapper_device_ms": device_ms(kern),
+            "wrapper_call_ms": cuda_ms(kern),
+            "plain_ms": device_ms(plain, iters=10),
+            "library_ms": device_ms(library),
+            "library_is": "torch.bmm of the window profile on pre-gathered "
+                          "taps: the conv half only",
+            "bytes": nbytes, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return shapes
+
+
+def ptxas_lines(lib_path: str) -> list[str]:
+    """What nvcc -Xptxas -v printed of each kernel: its name, then its
+    registers and barriers."""
+    with open(lib_path[:-3] + ".log") as f:
+        return [ln.strip() for ln in f
+                if "entry function" in ln or "registers" in ln]
+
+
 def profile_phase(codec, planes, wall_s: float) -> None:
     """Where a teacher-mode (encode) run of the step loop spends device
     time: kernels by summed device time, and the device's busy share of
@@ -161,7 +263,8 @@ def profile_phase(codec, planes, wall_s: float) -> None:
           for e in prof.key_averages() if e.self_device_time_total > 0]
     busy = sum(t for _, t, _ in ev) / 1e3
     top = sorted(ev, key=lambda e: -e[1])[:15]
-    emit("profile", t0, busy_s=busy, busy_share_of_encode=busy / wall_s,
+    emit("profile", t0, window_mode=codec.window_mode, busy_s=busy,
+         busy_share_of_encode=busy / wall_s,
          top=[{"kernel": k[:90], "ms": t, "calls": c} for k, t, c in top])
 
 
@@ -189,7 +292,8 @@ def main() -> int:
         return 2
     try:
         from pseudocylindrical_convolution_torch.codec import (
-            coder_bridge, wavefront_scan, window_kernel as wk)
+            coder_bridge, container, fused_kernel as fk, wavefront_scan,
+            window_kernel as wk)
         from pseudocylindrical_convolution_torch.codec.wavefront import (
             wavefront_schedule)
         from pseudocylindrical_convolution_torch.models.cmpnet import (
@@ -208,11 +312,13 @@ def main() -> int:
          cuda=torch.version.cuda, name=torch.cuda.get_device_name(0))
 
     t0 = time.time()
-    with concurrent.futures.ThreadPoolExecutor(2) as ex:
-        futs = [ex.submit(wk._load), ex.submit(coder_bridge.load_library)]
+    with concurrent.futures.ThreadPoolExecutor(3) as ex:
+        futs = [ex.submit(wk._load), ex.submit(fk._load),
+                ex.submit(coder_bridge.load_library)]
         for f in futs:
             f.result()
-    emit("build", t0)
+    emit("build", t0, ptxas=ptxas_lines(wk._lib._name)
+         + ptxas_lines(fk._lib._name))
 
     cfg = CMPNetConfig(valid_dim=192)
     geom = cfg.geometry()
@@ -222,6 +328,12 @@ def main() -> int:
     t0 = time.time()
     shapes = kernel_phase(wk, geom, cfg.ngroup, h, w, nsteps)
     emit("kernel", t0, shapes={str(k): v for k, v in shapes.items()})
+
+    t0 = time.time()
+    wavefront_scan.pin_numerics()
+    fshapes = fused_kernel_phase(fk, wk, wavefront_scan, geom, cfg.ngroup,
+                                 h, w, nsteps)
+    emit("fused_kernel", t0, shapes={str(k): v for k, v in fshapes.items()})
 
     t0 = time.time()
     if not os.path.exists(CHECKPOINT):
@@ -234,7 +346,7 @@ def main() -> int:
     t_codec = time.time()
     with tempfile.TemporaryDirectory() as tmp:
         fn = os.path.join(tmp, "img.bin")
-        wk.launches = 0                         # the main path starts here
+        wk.launches = fk.launches = 0           # the main path starts here
         t0 = time.time()
         (size,), planes = wavefront_scan.scan_encode_images(
             model, [x], geom, [fn], device="cuda", return_planes=True)
@@ -246,9 +358,9 @@ def main() -> int:
         torch.cuda.synchronize()
         t_dec = time.time() - t0
         launches = wk.launches                  # ... and ends here
-    codec = wavefront_scan.get_scan_codec(
-        cfg, geom, h, w, 1, wavefront_scan.auto_lanes(geom, h, w,
-                                                      cfg.ngroup))
+        stray = fk.launches
+    lanes = wavefront_scan.auto_lanes(geom, h, w, cfg.ngroup)
+    codec = wavefront_scan.get_scan_codec(cfg, geom, h, w, 1, lanes)
     valid = np.zeros((geom.npart, cfg.ngroup, h, w), bool)
     for b, wl in enumerate(geom.hindex(h * geom.npart, w)):
         valid[b, :, :, :int(wl)] = True
@@ -257,18 +369,57 @@ def main() -> int:
         raise AssertionError(f"decoded symbol plane differs in {nbad} "
                              f"symbols")
     want = 2 * 12 * nsteps
-    if launches != want:
+    if launches != want or stray:
         raise AssertionError(f"window kernel launched {launches} times on "
-                             f"the main path, expected {want}")
+                             f"the main path, expected {want}; fused "
+                             f"kernel {stray}, expected 0")
     rec = rec.float().cpu().numpy()
     if rec.shape != x.shape or not np.isfinite(rec).all():
         raise AssertionError(f"bad reconstruction {rec.shape}")
     mse = float(np.mean((rec - x) ** 2))
-    emit("codec", t_codec, encode_s=round(t_enc, 3), decode_s=round(t_dec, 3),
-         bytes=size, bpp=size * 8 / (H * W),
-         psnr_db=10 * math.log10(1.0 / max(mse, 1e-12)),
+    psnr = 10 * math.log10(1.0 / max(mse, 1e-12))
+    emit("codec", t_codec, window_mode=codec.window_mode,
+         encode_s=round(t_enc, 3), decode_s=round(t_dec, 3),
+         bytes=size, bpp=size * 8 / (H * W), psnr_db=psnr,
          nsteps=nsteps, lanes=codec.L, symbols=codec.nsym,
          symbol_mismatches=nbad, window_launches=launches)
+
+    t_codec = time.time()
+    fcodec = wavefront_scan.get_scan_codec(
+        cfg, geom, h, w, 1, lanes, window_mode="fused").prepare(model.ent)
+    with tempfile.TemporaryDirectory() as tmp:
+        fn = os.path.join(tmp, "img.bin")
+        wk.launches = fk.launches = 0           # the fused path starts here
+        t0 = time.time()
+        (fsize,) = fcodec.encode_files(planes, [fn])
+        torch.cuda.synchronize()
+        f_enc = time.time() - t0
+        t0 = time.time()
+        frec, fplanes = wavefront_scan.scan_decode_images(
+            model, geom, [fn], (H, W), device="cuda", return_planes=True)
+        torch.cuda.synchronize()
+        f_dec = time.time() - t0
+        flaunches, stray = fk.launches, wk.launches   # ... and ends here
+        flags2 = container.read_stream(fn)["flags2"]
+    fbad = int(((fplanes != planes) & valid[None]).sum())
+    if fbad:
+        raise AssertionError(f"fused profile: decoded symbol plane differs "
+                             f"in {fbad} symbols")
+    if flags2 != container.FLAG2_TORCH | container.FLAG2_TORCH_FUSED:
+        raise AssertionError(f"fused stream has flags2 {flags2}")
+    if flaunches != want or stray:
+        raise AssertionError(f"fused kernel launched {flaunches} times on "
+                             f"the fused path, expected {want}; window "
+                             f"kernel {stray}, expected 0")
+    frec = frec.float().cpu().numpy()
+    if not np.array_equal(frec, rec):
+        raise AssertionError("the fused profile's reconstruction differs "
+                             "from the window profile's on the same latents")
+    emit("fused_codec", t_codec, window_mode=fcodec.window_mode,
+         encode_s=round(f_enc, 3), decode_s=round(f_dec, 3), bytes=fsize,
+         bpp=fsize * 8 / (H * W), psnr_db=psnr, flags2=flags2,
+         symbol_mismatches=fbad, fused_launches=flaunches,
+         window_launches=stray)
 
     k432 = shapes[3 * cfg.ngroup * 3]
     entry = {
@@ -284,9 +435,25 @@ def main() -> int:
         "per_width": {str(k): {kk: v[kk] for kk in (
             "ms", "plain_ms", "bound_ms", "library_ms", "bytes")}
             for k, v in shapes.items()}}
+    f432 = fshapes[3 * cfg.ngroup * 3]
+    fentry = {
+        "name": "fused_kernel", "route": "cuda",
+        "source": "pseudocylindrical_convolution_torch/csrc/fused.cu",
+        "replaces": "pseudocylindrical_convolution_tpu/codec/"
+                    "pallas_fused.py:55",
+        "launches": flaunches, "max_abs_err": max(
+            s["max_abs_err"] for s in fshapes.values()),
+        "ms": f432["ms"], "plain_ms": f432["plain_ms"],
+        "bound_ms": f432["bound_ms"], "bound_by": f432["bound_by"],
+        "library_ms": f432["library_ms"],
+        "library_is": f432["library_is"],
+        "per_width": {f"CI={v['CI']}": {kk: v[kk] for kk in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bytes",
+            "flops")} for v in fshapes.values()}}
     if "--profile" in sys.argv[1:]:
         profile_phase(codec, planes, t_enc)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+        profile_phase(fcodec, planes, f_enc)
+    print(json.dumps({"kernels": [entry, fentry]}), flush=True)
     print(smi, flush=True)
     print(f"wall {time.time() - T_START:.1f} s", file=sys.stderr)
     print(json.dumps({"ok": True, "device": {

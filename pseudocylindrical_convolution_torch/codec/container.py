@@ -13,15 +13,20 @@ container.py`` writes it:
   lanes  u16  scan mode only (0 for dense)
   batch  u8   scan executable batch (0 for dense)
   flags2 u8   bits 0-3 are JAX window modes (mm pads, Pallas window,
-              fused step, fused unrolled); bit 4 (FLAG2_TORCH) marks a
-              stream written by this port, which sets no other bit.
+              fused step, fused unrolled), which this port never sets;
+              bit 4 (FLAG2_TORCH) marks a stream written by this port;
+              bit 5 (FLAG2_TORCH_FUSED) marks the port's fused profile
+              (one CUDA kernel per layer-step, codec/fused_kernel.py).
   [lanes * u32 lane_nbytes]   scan mode only
   payload bytes
 
 Bit-exactness is per executable, so a stream decodes only on the program
 that wrote it. FLAG2_TORCH makes each package refuse the other's streams:
 the port's reader rejects a stream without it, and the JAX package's
-profile check sees a flags2 it does not produce.
+profile check sees a flags2 it does not produce. FLAG2_TORCH_FUSED is the
+port's own bit, not the JAX fused-step bit: the two fused kernels sum in
+other orders, so neither program can decode the other's fused streams,
+and the JAX bits stay refused by name.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ FLAG2_PALLASWIN = 2
 FLAG2_FUSEDSTEP = 4
 FLAG2_FUSEDUNROLL = 8
 FLAG2_TORCH = 16
+FLAG2_TORCH_FUSED = 32
 _JAX_ONLY = (("flags", FLAG_BURST, "burst window"),
              ("flags", FLAG_SLAB, "slab window"),
              ("flags", FLAG_HOIST, "hoisted window"),

@@ -1,9 +1,15 @@
 """Scan wavefront codec: the flagship codec's entropy coding, step by step.
 
 The port of the JAX package's ``codec/wavefront_scan.py``
-(``ScanWavefrontCodec`` in its gather and kernel window modes, which here
-are one: ``window`` takes the plain gather for a CPU tensor and the CUDA
-kernel, bit-equal to it, for a CUDA tensor). A latent
+(``ScanWavefrontCodec`` in two profiles, named by ``window_mode`` as there).
+``"window"`` (the default) is the JAX gather and kernel window modes in
+one: ``window`` takes the plain gather for a CPU tensor and the CUDA
+kernel, bit-equal to it, for a CUDA tensor, and a batched fp32 matmul does
+the conv. ``"fused"`` is the JAX fused mode: one call per layer-step,
+``fused`` (codec/fused_kernel.py), assembles the window and runs the conv
+in one CUDA kernel on the card and in its plain version on the CPU. The
+two profiles sum the conv in different orders, so their streams carry
+their own profile bits and decode only on their own profile. A latent
 symbol at (global row i, column j, group g) is coded at wavefront step
 z = i + j + g. Every step runs the causal entropy network on the new
 frontier only: for each of its 12 layers a skew window is read out of that
@@ -37,6 +43,7 @@ import torch.nn.functional as F
 from pseudocylindrical_convolution_torch.codec import container, device_ac
 from pseudocylindrical_convolution_torch.codec.coder_bridge import (
     encode_lanes)
+from pseudocylindrical_convolution_torch.codec.fused_kernel import fused
 from pseudocylindrical_convolution_torch.codec.incremental import (
     stack_step_weights)
 from pseudocylindrical_convolution_torch.codec.pipeline import (
@@ -77,6 +84,33 @@ def _shear_kernel(w: torch.Tensor) -> torch.Tensor:
     return torch.stack(cols, dim=-1)
 
 
+def bias_prelu(cells: torch.Tensor, layer: dict) -> torch.Tensor:
+    """A layer's epilogue on fp32 cells (..., 3*G*n): bias, then PReLU
+    where the layer has one."""
+    out = cells + layer["b"]
+    if layer["a"] is not None:
+        out = torch.where(out >= 0, out, layer["a"] * out)
+    return out
+
+
+def conv_taps(win: torch.Tensor, nb: int) -> torch.Tensor:
+    """The window profile's matmul operand: each group's 9x5 taps of the
+    window (B, npart, h+4, T, CC), gathered once in fp32 ->
+    (G*nb, B*npart*h, 45*CC/nb), batch (u = G-1-group, subnet chunk)."""
+    B, npart, hp4, T, CC = win.shape
+    h, G = hp4 - 4, T - 8
+    x = win.float().contiguous()
+    s = x.stride()
+    # taps[b, p, u, r, dt, di, c] = window[b, p, r+di, u+dt, c]
+    taps = x.as_strided((B, npart, G, h, 9, 5, nb, CC // nb),
+                        (s[0], s[1], s[3], s[2], s[3], s[2], CC // nb, 1))
+    return taps.permute(2, 6, 0, 1, 3, 4, 5, 7).reshape(
+        G * nb, B * npart * h, -1)
+
+
+WINDOW_MODES = ("window", "fused")
+
+
 class ScanWavefrontCodec:
     """Batched step-by-step wavefront encoder/decoder for one latent
     geometry; B is part of the stream profile (a stream decodes in any
@@ -85,7 +119,11 @@ class ScanWavefrontCodec:
     def __init__(self, cfg: CMPNetConfig, geom: Geometry, h: int, w: int,
                  batch: int = 1, lanes: int = 64, cpn: int = 3,
                  num_gaussian: int = 3, dtype=torch.bfloat16,
-                 device="cuda"):
+                 device="cuda", window_mode: str = "window"):
+        if window_mode not in WINDOW_MODES:
+            raise ValueError(f"window_mode {window_mode!r} is not one of "
+                             f"{WINDOW_MODES}")
+        self.window_mode = window_mode
         self.device = resolve_device(device)
         pin_numerics()
         self.cfg, self.geom, self.h, self.w = cfg, geom, h, w
@@ -168,21 +206,28 @@ class ScanWavefrontCodec:
 
     @property
     def profile_flags2(self) -> int:
+        if self.window_mode == "fused":
+            return container.FLAG2_TORCH | container.FLAG2_TORCH_FUSED
         return container.FLAG2_TORCH
 
     @torch.no_grad()
     def prepare(self, ent) -> "ScanWavefrontCodec":
-        """Mask, stack and shear the entropy weights into one batched
-        matmul operand per layer.
+        """Mask, stack and shear the entropy weights into one conv operand
+        per layer.
 
         ent: ``CMPNet.ent``. Output group g of a layer reads the 9x5 taps
         of window slices [G-1-g, G+8-g) (the sheared kernel
-        K[dt, di] = W[di, dt-di]). Batch u = G-1-g holds group g's kernel
-        as (45*cin, n) over (dt, di, cin): per subnet for the hidden layers
-        (cin = G*cpn, n = cpn), all three subnets at once for the input
-        plane (cin = G, n = 3*cpn). The values are the buffer dtype's, held
-        in fp32, so with bf16 buffers every product with the upcast window
-        is exact and only the fp32 sums round."""
+        K[dt, di] = W[di, dt-di]). The values are the buffer dtype's, so
+        with bf16 buffers every product with the upcast window is exact and
+        only the fp32 sums round.
+
+        Window profile, the batched matmul's operand "k": batch u = G-1-g
+        holds group g's kernel as (45*cin, n) over (dt, di, cin), held in
+        fp32: per subnet for the hidden layers (cin = G*cpn, n = cpn), all
+        three subnets at once for the input plane (cin = G, n = 3*cpn).
+        Fused profile, the fused kernel's operand "kf": (3*G, 45*cin, cpg)
+        in the buffer dtype, batch (subnet, group), as the kernel reads
+        it."""
         if self._prepared_src is ent:
             return self
         G = self.G
@@ -191,14 +236,22 @@ class ScanWavefrontCodec:
                                                     self.ng)):
             wt = lay["w"].to(self.device, torch.float32)
             _, _, cpg, cin, _, _ = wt.shape       # (3, G, cpg, cin, 5, 5)
-            k = _shear_kernel(wt).to(self.dtype).float()  # (3,G,cpg,cin,9,5)
-            k = k.flip(1)                                 # group -> u
-            if li == 0:
-                k = k.permute(1, 4, 5, 3, 0, 2).reshape(G, 45 * cin, 3 * cpg)
+            k = _shear_kernel(wt).to(self.dtype)   # (3, G, cpg, cin, 9, 5)
+            entry = {}
+            if self.window_mode == "fused":
+                entry["kf"] = k.permute(0, 1, 4, 5, 3, 2).reshape(
+                    3 * G, 45 * cin, cpg).contiguous()
             else:
-                k = k.permute(1, 0, 4, 5, 3, 2).reshape(3 * G, 45 * cin, cpg)
+                k = k.float().flip(1)                     # group -> u
+                if li == 0:
+                    k = k.permute(1, 4, 5, 3, 0, 2).reshape(G, 45 * cin,
+                                                            3 * cpg)
+                else:
+                    k = k.permute(1, 0, 4, 5, 3, 2).reshape(3 * G, 45 * cin,
+                                                            cpg)
+                entry["k"] = k.contiguous()
             self._weights.append({
-                "k": k.contiguous(),
+                **entry,
                 "b": lay["b"].reshape(-1).to(self.device, torch.float32),
                 "a": None if lay["a"] is None else
                 lay["a"].reshape(-1).to(self.device, torch.float32)})
@@ -218,27 +271,18 @@ class ScanWavefrontCodec:
         G, h, B, npart = self.G, self.h, self.B, self.npart
         k = layer["k"]
         nb = k.shape[0] // G                # matmuls per group: 3 or 1
-        x = win.float().contiguous()        # (B, np, h+4, T, CC)
-        CC = x.shape[-1]
-        s = x.stride()
-        # taps[b, p, u, r, dt, di, c] = window[b, p, r+di, u+dt, c]
-        taps = x.as_strided((B, npart, G, h, 9, 5, nb, CC // nb),
-                            (s[0], s[1], s[3], s[2], s[3], s[2],
-                             CC // nb, 1))
-        taps = taps.permute(2, 6, 0, 1, 3, 4, 5, 7).reshape(
-            G * nb, B * npart * h, -1)
-        out = torch.bmm(taps, k).reshape(G, nb, B, npart, h, -1).flip(0)
+        out = torch.bmm(conv_taps(win, nb), k).reshape(
+            G, nb, B, npart, h, -1).flip(0)
         if nb == 3:                         # (u, s, b, p, r, n)
             out = out.permute(2, 3, 4, 1, 0, 5)
         else:                               # (u, 1, b, p, r, (s, n))
             out = out.reshape(G, B, npart, h, 3, -1).permute(1, 2, 3, 4, 0,
                                                              5)
-        out = out.reshape(B, npart, h, -1) + layer["b"]
-        if layer["a"] is not None:
-            out = torch.where(out >= 0, out, layer["a"] * out)
-        return out
+        return bias_prelu(out.reshape(B, npart, h, -1), layer)
 
     def _frontier(self, buf, z, layer):
+        if self.window_mode == "fused":
+            return bias_prelu(fused(buf, z, self.tabs, layer["kf"]), layer)
         return self._conv_cells(window(buf, z, self.tabs), layer)
 
     def _deposit_index(self, z: int) -> torch.Tensor:
@@ -376,6 +420,23 @@ class ScanWavefrontCodec:
             raise ValueError(f"{fname}: stream profile flags {got} do not "
                              f"match this decoder's profile {want}")
 
+    def encode_files(self, planes, fnames) -> list:
+        """Encode (B, npart, G, h, w) symbol planes to container files;
+        ``fnames`` may be shorter than B (padding slots are dropped).
+        Returns the file sizes."""
+        return self.write_files(self.encode_planes(planes)[:len(fnames)],
+                                fnames)
+
+    def decode_files(self, fnames) -> np.ndarray:
+        """Decode <= B container files written by this codec's profile ->
+        (len(fnames), npart, G, h, w) int64 symbol planes."""
+        streams = []
+        for fn in fnames:
+            hdr = container.read_stream(fn)
+            self.check_header(hdr, fn)
+            streams.append((hdr["payload"], hdr["lane_nbytes"]))
+        return self.decode_streams(streams)
+
     def decode_streams_device(self, streams: list) -> torch.Tensor:
         """streams: <= B (payload bytes, lane_nbytes) pairs -> (B, P) int64
         symbol planes on the device (unused slots decode zeros)."""
@@ -430,13 +491,15 @@ def auto_lanes(geom: Geometry, h: int, w: int, G: int) -> int:
 
 def get_scan_codec(cfg: CMPNetConfig, geom: Geometry, h: int, w: int,
                    batch: int, lanes: int, dtype=torch.bfloat16,
-                   device="cuda") -> ScanWavefrontCodec:
+                   device="cuda", window_mode: str = "window"
+                   ) -> ScanWavefrontCodec:
     dev = resolve_device(device)
-    key = (cfg, geom, h, w, batch, lanes, dtype, str(dev))
+    key = (cfg, geom, h, w, batch, lanes, dtype, str(dev), window_mode)
     codec = _CODEC_CACHE.get(key)
     if codec is None:
         codec = ScanWavefrontCodec(cfg, geom, h, w, batch=batch, lanes=lanes,
-                                   dtype=dtype, device=dev)
+                                   dtype=dtype, device=dev,
+                                   window_mode=window_mode)
         _CODEC_CACHE[key] = codec
     return codec
 
@@ -473,9 +536,7 @@ def scan_encode_images(model: CMPNet, images, geom: Geometry, fnames,
     for o in range(0, len(planes), batch):
         chunk = planes[o:o + batch]
         full = torch.stack(chunk + [chunk[-1]] * (batch - len(chunk)))
-        _, packed = codec.run(teacher=full.reshape(batch, codec.P))
-        streams = codec._lanes(packed.cpu().numpy())[:len(chunk)]
-        sizes += codec.write_files(streams, fnames[o:o + batch])
+        sizes += codec.encode_files(full, fnames[o:o + batch])
     if return_planes:
         return sizes, torch.stack(planes).cpu().numpy()
     return sizes
@@ -487,7 +548,9 @@ def scan_decode_images(model: CMPNet, geom: Geometry, fnames,
                        return_planes: bool = False):
     """Decode scan-mode container files -> (N, 3, H, W) float32 images on
     the device (and the (N, npart, G, h, w) symbol planes with
-    ``return_planes``)."""
+    ``return_planes``). The codec's profile (buffer dtype, window or fused)
+    is the one the first stream's header names; every stream must match
+    it."""
     dev = resolve_device(device)
     _check_model(model, dev)
     pin_numerics()
@@ -498,9 +561,11 @@ def scan_decode_images(model: CMPNet, geom: Geometry, fnames,
     hdr0 = hdrs[0]
     dtype = (torch.bfloat16 if hdr0["flags"] & container.FLAG_BF16
              else torch.float32)
+    window_mode = ("fused" if hdr0["flags2"] & container.FLAG2_TORCH_FUSED
+                   else "window")
     codec = get_scan_codec(
         cfg, geom, h, w, int(hdr0["batch"]), int(hdr0["lanes"]),
-        dtype=dtype, device=dev).prepare(model.ent)
+        dtype=dtype, device=dev, window_mode=window_mode).prepare(model.ent)
     recs, planes = [], []
     for o in range(0, len(fnames), codec.B):
         chunk = list(zip(hdrs[o:o + codec.B], fnames[o:o + codec.B]))

@@ -12,9 +12,14 @@ window (B, npart, h+4, T, CC), T = G+8, out of the layer buffer
     version; a CUDA tensor launches the kernel or raises.
 
 Both read the same static tables (``build_window_tables``), built once per
-codec geometry. Every window element is a copy, one weighted tap rounded
-once to the buffer dtype, or (on the 4 vertical-pad rows) the sum of two
-such taps rounded once more; a tap whose weight is 0 is +0.0. So the
+codec geometry. The kernel's element code (csrc/window_common.cuh) and the
+wrapper's helpers here (``patch_values``, ``check_buffer``,
+``step_table_ptrs``, ``source_rows``) also serve the fused window+conv
+kernel (codec/fused_kernel.py).
+
+Every window element is a copy, one weighted tap rounded once to the
+buffer dtype, or (on the 4 vertical-pad rows) the sum of two such taps
+rounded once more; a tap whose weight is 0 is +0.0. So the
 kernel and the plain version agree bit for bit, which is what lets an
 encode and a decode that use the same path agree on every CDF row.
 
@@ -196,11 +201,48 @@ def window_plain(buf: torch.Tensor, z: int, tabs: WindowTables
     return win
 
 
+def patch_values(buf: torch.Tensor, tabs: WindowTables) -> torch.Tensor:
+    """The pre-weighted patch values v6 (B, npart, h, 6, CC) that the window
+    and fused kernels take for the interior rows' patch positions."""
+    return _weighted(buf[:, tabs.idx6], tabs.wgt6).contiguous()
+
+
+def check_buffer(buf: torch.Tensor, z: int, tabs: WindowTables,
+                 kernel: str) -> None:
+    """Raise unless ``buf`` is a buffer the window tables fit on its card."""
+    if not buf.is_cuda:
+        raise ValueError(f"{kernel} needs a CUDA tensor")
+    if buf.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{kernel} takes bf16 or fp32, not {buf.dtype}")
+    if (buf.dim() != 3 or buf.shape[1] != tabs.Sbuf
+            or not buf.is_contiguous()):
+        raise ValueError(f"buffer {tuple(buf.shape)} (contiguous="
+                         f"{buf.is_contiguous()}) does not fit tables with "
+                         f"Sbuf={tabs.Sbuf}")
+    if not 0 <= z < tabs.starts.shape[0]:
+        raise IndexError(f"step {z} outside [0, {tabs.starts.shape[0]})")
+    if tabs.wl.device != buf.device:
+        raise ValueError(f"tables live on {tabs.wl.device}, buffer on "
+                         f"{buf.device}")
+    if tabs.wz.dtype != buf.dtype:
+        raise TypeError(f"tables are {tabs.wz.dtype}, buffer {buf.dtype}")
+
+
+def step_table_ptrs(tabs: WindowTables, z: int) -> list[int]:
+    """Device addresses of the step-z tables, in the kernels' argument
+    order (starts, j0, tpos; colz, wz), without making views."""
+    def step(t):
+        return t.data_ptr() + z * t.stride(0) * t.element_size()
+    return [step(t) for t in (tabs.starts, tabs.j0, tabs.tpos, tabs.colz,
+                              tabs.wz)]
+
+
 def _load():
     global _lib
     if _lib is None:
         path = build_library("window", ["window.cu"],
-                             [find_nvcc()] + NVCC_FLAGS)
+                             [find_nvcc()] + NVCC_FLAGS,
+                             headers=("window_common.cuh",))
         lib = ctypes.CDLL(path)
         for name in ("pc_window_bf16", "pc_window_f32"):
             fn = getattr(lib, name)
@@ -215,39 +257,22 @@ def window_cuda(buf: torch.Tensor, z: int, tabs: WindowTables
                 ) -> torch.Tensor:
     """The same window from the CUDA kernel (launches once)."""
     global launches
-    if not buf.is_cuda:
-        raise ValueError("window_cuda needs a CUDA tensor")
-    if buf.device.index not in (None, torch.cuda.current_device()):
+    if buf.is_cuda and buf.device.index not in (
+            None, torch.cuda.current_device()):
         with torch.cuda.device(buf.device):
             return window_cuda(buf, z, tabs)
-    if buf.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"window kernel takes bf16 or fp32, not {buf.dtype}")
+    check_buffer(buf, z, tabs, "window_cuda")
     B, Sbuf, CC = buf.shape
-    if Sbuf != tabs.Sbuf or not buf.is_contiguous():
-        raise ValueError(f"buffer {tuple(buf.shape)} (contiguous="
-                         f"{buf.is_contiguous()}) does not fit tables with "
-                         f"Sbuf={tabs.Sbuf}")
-    if not 0 <= z < tabs.starts.shape[0]:
-        raise IndexError(f"step {z} outside [0, {tabs.starts.shape[0]})")
-    if tabs.wl.device != buf.device:
-        raise ValueError(f"tables live on {tabs.wl.device}, buffer on "
-                         f"{buf.device}")
-    if tabs.wz.dtype != buf.dtype:
-        raise TypeError(f"tables are {tabs.wz.dtype}, buffer {buf.dtype}")
     h, npart, T = tabs.h, tabs.npart, tabs.T
-    v6 = _weighted(buf[:, tabs.idx6], tabs.wgt6).contiguous()
+    v6 = patch_values(buf, tabs)
     out = torch.empty((B, npart, h + 4, T, CC), dtype=buf.dtype,
                       device=buf.device)
     lib = _load()
     fn = lib.pc_window_bf16 if buf.dtype == torch.bfloat16 \
         else lib.pc_window_f32
-
-    def step(t):                     # address of t[z] without a view
-        return t.data_ptr() + z * t.stride(0) * t.element_size()
-
-    err = fn(buf.data_ptr(), step(tabs.starts), step(tabs.j0),
-             step(tabs.tpos), v6.data_ptr(), tabs.pstarts.data_ptr(),
-             step(tabs.colz), step(tabs.wz), tabs.wl.data_ptr(),
+    starts, j0, tpos, colz, wz = step_table_ptrs(tabs, z)
+    err = fn(buf.data_ptr(), starts, j0, tpos, v6.data_ptr(),
+             tabs.pstarts.data_ptr(), colz, wz, tabs.wl.data_ptr(),
              out.data_ptr(), B, npart, h, T, tabs.w, CC, Sbuf,
              torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -266,6 +291,26 @@ def window(buf: torch.Tensor, z: int, tabs: WindowTables) -> torch.Tensor:
     raise ValueError(f"no window path for device {buf.device}")
 
 
+def source_rows(z: int, tabs: WindowTables) -> int:
+    """Distinct buffer rows the window at step z reads: the interior runs
+    inside the valid widths and the live pad-tap columns."""
+    t = torch.arange(tabs.T, device=tabs.j0.device)
+    jj = tabs.j0[z][..., None] + t                     # (np, h, T)
+    run = (jj >= 0) & (jj < tabs.wl[:, None, None])
+    rows = [(tabs.starts[z][..., None] + t)[run]]
+    live = tabs.wz[z] != 0                             # (np, 4, 2, T)
+    prow = tabs.pstarts[..., None].long() + tabs.colz[z]
+    rows.append(prow[live])
+    return int(torch.unique(torch.cat([x.long() for x in rows])).numel())
+
+
+def step_table_bytes(z: int, tabs: WindowTables) -> int:
+    """Bytes of the tables one window or fused call reads at step z."""
+    return sum(x.numel() * x.element_size() for x in (
+        tabs.starts[z], tabs.j0[z], tabs.tpos[z], tabs.colz[z], tabs.wz[z],
+        tabs.pstarts, tabs.wl))
+
+
 def window_bytes(buf: torch.Tensor, z: int, tabs: WindowTables) -> int:
     """Bytes one window call must move at step z for this buffer: each
     distinct buffer row it reads once, the patch values and the step's
@@ -273,16 +318,6 @@ def window_bytes(buf: torch.Tensor, z: int, tabs: WindowTables) -> int:
     B, _, CC = buf.shape
     es = buf.element_size()
     npart, h, T = tabs.npart, tabs.h, tabs.T
-    t = torch.arange(T, device=tabs.j0.device)
-    jj = tabs.j0[z][..., None] + t                     # (np, h, T)
-    run = (jj >= 0) & (jj < tabs.wl[:, None, None])
-    rows = [(tabs.starts[z][..., None] + t)[run]]
-    live = tabs.wz[z] != 0                             # (np, 4, 2, T)
-    prow = tabs.pstarts[..., None].long() + tabs.colz[z]
-    rows.append(prow[live])
-    nrows = int(torch.unique(torch.cat([x.long() for x in rows])).numel())
-    table_bytes = sum(x.numel() * x.element_size() for x in (
-        tabs.starts[z], tabs.j0[z], tabs.tpos[z], tabs.colz[z], tabs.wz[z],
-        tabs.pstarts, tabs.wl))
-    return (B * nrows * CC * es + B * npart * h * 6 * CC * es + table_bytes
+    return (B * source_rows(z, tabs) * CC * es
+            + B * npart * h * 6 * CC * es + step_table_bytes(z, tabs)
             + B * npart * (h + 4) * T * CC * es)

@@ -5,19 +5,12 @@
 // One call builds one layer-step's window (B, npart, h+4, T, CC) out of the
 // layer buffer (B, Sbuf, CC), from per-step tables that
 // codec/window_kernel.py::build_window_tables precomputes and audits:
-//
-//   interior row (band b, row r = rp - 2): position t copies buffer row
-//     starts[b,r] + t while 0 <= j0[b,r] + t < wl[b], is +0.0 outside, and
-//     takes the pre-weighted patch value v6[bi,b,r,k] where t == tpos[b,r,k]
-//     (the causal-left zeros and the circular wraps, <= 6 per row);
-//   vertical-pad row k (rp in {0, 1, h+2, h+3}): each tap q reads column
-//     colz[b,k,q,t] of the single source row pstarts[b,k,q], times wz; a tap
-//     is rounded once to the buffer type (+0.0 when its weight is 0), and
-//     the two taps are added and rounded once more.
-// Those are exactly the roundings of the plain gather version
-// (window_kernel.py::window_plain), so the two agree bit for bit. __fmul_rn
-// and __fadd_rn keep the compiler from contracting a tap and the sum into
-// one FMA, which would round differently.
+// interior rows (a run of buffer rows, masked to the valid width, with <= 6
+// patch values) and vertical-pad rows (two weighted single-row taps). The
+// element-wise device code lives in window_common.cuh, shared with the
+// fused window+conv kernel (fused.cu); its roundings are exactly those of
+// the plain gather version (window_kernel.py::window_plain), so the two
+// agree bit for bit.
 //
 // What bounds it: bytes. The output alone is (h+4)*T*CC*2 B per band in
 // bf16, about 6.2 MB per layer-step at the flagship shape (B=1, npart=16,
@@ -35,42 +28,13 @@
 
 #include <cstdint>
 
+#include "window_common.cuh"
+
 namespace {
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Pack {
-  T v[VEC];
-};
-
-// One tap: the product rounded once to T, or +0.0 where the weight is 0.
-template <typename T>
-__device__ __forceinline__ float tap(T x, float wt) {
-  return wt == 0.f ? 0.f : to_f(from_f<T>(__fmul_rn(to_f(x), wt)));
-}
-
-template <typename T, int VEC>
-__device__ __forceinline__ Pack<T, VEC> zero_pack() {
-  Pack<T, VEC> p;
-#pragma unroll
-  for (int e = 0; e < VEC; ++e) p.v[e] = from_f<T>(0.f);
-  return p;
-}
+using pcwin::InteriorRow;
+using pcwin::Pack;
+using pcwin::PadRow;
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(256)
@@ -92,60 +56,22 @@ __global__ void __launch_bounds__(256)
   const int total = Tw * nvec;
 
   if (rp >= 2 && rp < h + 2) {
-    const int cell = band * h + (rp - 2);
-    const int s = starts[cell];
-    const int tlo = -j0[cell];             // t >= tlo  <=>  j >= 0
-    const int thi = wl[band] - j0[cell];   // t <  thi  <=>  j <  wl
-    int tp[6];
-#pragma unroll
-    for (int q = 0; q < 6; ++q) tp[q] = tpos[cell * 6 + q];
-    const T* v6row =
-        v6 + (static_cast<size_t>(bi) * npart * h + cell) * 6 * CC;
+    const InteriorRow<T> row = pcwin::interior_row(
+        bufb, starts, j0, tpos, v6, wl, bi, npart, h, band, rp - 2, CC);
     for (int i = threadIdx.x; i < total; i += blockDim.x) {
       const int t = i / nvec;
       const int c = (i - t * nvec) * VEC;
-      int k = -1;
-#pragma unroll
-      for (int q = 0; q < 6; ++q) k = (tp[q] == t) ? q : k;
-      P val;
-      if (k >= 0) {
-        val = *reinterpret_cast<const P*>(v6row + static_cast<size_t>(k) * CC
-                                          + c);
-      } else if (t >= tlo && t < thi) {
-        val = *reinterpret_cast<const P*>(
-            bufb + static_cast<size_t>(s + t) * CC + c);
-      } else {
-        val = zero_pack<T, VEC>();
-      }
-      *reinterpret_cast<P*>(orow + static_cast<size_t>(t) * CC + c) = val;
+      *reinterpret_cast<P*>(orow + static_cast<size_t>(t) * CC + c) =
+          pcwin::interior_pack<T, VEC>(row, t, c, CC);
     }
   } else {
-    const int k = rp < 2 ? rp : rp - h;     // pad row 0..3
-    const int p0 = (band * 4 + k) * 2;      // tap 0; tap 1 is p0 + 1
-    const T* src0 = bufb + static_cast<size_t>(pstarts[p0]) * CC;
-    const T* src1 = bufb + static_cast<size_t>(pstarts[p0 + 1]) * CC;
-    const int* cz0 = colz + static_cast<size_t>(p0) * Tw;
-    const int* cz1 = cz0 + Tw;
-    const T* wz0 = wz + static_cast<size_t>(p0) * Tw;
-    const T* wz1 = wz0 + Tw;
+    const PadRow<T> row = pcwin::pad_row(bufb, pstarts, colz, wz, band,
+                                         rp < 2 ? rp : rp - h, Tw, CC);
     for (int i = threadIdx.x; i < total; i += blockDim.x) {
       const int t = i / nvec;
       const int c = (i - t * nvec) * VEC;
-      const float w0 = to_f(wz0[t]);
-      const float w1 = to_f(wz1[t]);
-      const P a = w0 != 0.f
-          ? *reinterpret_cast<const P*>(
-                src0 + static_cast<size_t>(cz0[t]) * CC + c)
-          : zero_pack<T, VEC>();
-      const P b = w1 != 0.f
-          ? *reinterpret_cast<const P*>(
-                src1 + static_cast<size_t>(cz1[t]) * CC + c)
-          : zero_pack<T, VEC>();
-      P o;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        o.v[e] = from_f<T>(__fadd_rn(tap(a.v[e], w0), tap(b.v[e], w1)));
-      *reinterpret_cast<P*>(orow + static_cast<size_t>(t) * CC + c) = o;
+      *reinterpret_cast<P*>(orow + static_cast<size_t>(t) * CC + c) =
+          pcwin::pad_pack<T, VEC>(row, t, c, CC);
     }
   }
 }

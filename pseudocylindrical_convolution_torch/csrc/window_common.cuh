@@ -1,0 +1,158 @@
+// Device code of the scan codec's skew window, shared by the window kernel
+// (window.cu) and the fused window+conv kernel (fused.cu).
+//
+// Both kernels build window elements with these functions, so the fused
+// kernel's on-chip window holds the same bits as the window kernel's output
+// and as the plain gather version (codec/window_kernel.py::window_plain).
+// The window is read from per-step tables that
+// codec/window_kernel.py::build_window_tables precomputes and audits:
+//
+//   interior row (band b, row r = rp - 2): position t copies buffer row
+//     starts[b,r] + t while 0 <= j0[b,r] + t < wl[b], is +0.0 outside, and
+//     takes the pre-weighted patch value v6[bi,b,r,k] where t == tpos[b,r,k]
+//     (the causal-left zeros and the circular wraps, <= 6 per row);
+//   vertical-pad row k (rp in {0, 1, h+2, h+3}): each tap q reads column
+//     colz[b,k,q,t] of the single source row pstarts[b,k,q], times wz; a tap
+//     is rounded once to the buffer type (+0.0 when its weight is 0), and
+//     the two taps are added and rounded once more.
+// __fmul_rn and __fadd_rn keep the compiler from contracting a tap and the
+// sum into one FMA, which would round differently.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+namespace pcwin {
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
+// One tap: the product rounded once to T, or +0.0 where the weight is 0.
+template <typename T>
+__device__ __forceinline__ float tap(T x, float wt) {
+  return wt == 0.f ? 0.f : to_f(from_f<T>(__fmul_rn(to_f(x), wt)));
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> zero_pack() {
+  Pack<T, VEC> p;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) p.v[e] = from_f<T>(0.f);
+  return p;
+}
+
+// The tables of one interior window row (band, r) at this step.
+template <typename T>
+struct InteriorRow {
+  const T* run;     // buffer row starts[b,r]: position t reads run + t*CC
+  const T* v6row;   // the row's 6 patch values, each CC wide
+  int tlo, thi;     // t in [tlo, thi) lies inside the valid width
+  int tp[6];        // patch positions (-1: no patch)
+};
+
+template <typename T>
+__device__ __forceinline__ InteriorRow<T> interior_row(
+    const T* bufb, const int* starts, const int* j0, const int* tpos,
+    const T* v6, const int* wl, int bi, int npart, int h, int band, int r,
+    int CC) {
+  InteriorRow<T> row;
+  const int cell = band * h + r;
+  row.run = bufb + static_cast<size_t>(starts[cell]) * CC;
+  row.v6row = v6 + (static_cast<size_t>(bi) * npart * h + cell) * 6 * CC;
+  row.tlo = -j0[cell];             // t >= tlo  <=>  j >= 0
+  row.thi = wl[band] - j0[cell];   // t <  thi  <=>  j <  wl
+#pragma unroll
+  for (int q = 0; q < 6; ++q) row.tp[q] = tpos[cell * 6 + q];
+  return row;
+}
+
+// VEC channels [c, c+VEC) of interior position t: patch, run or +0.0.
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> interior_pack(
+    const InteriorRow<T>& row, int t, int c, int CC) {
+  typedef Pack<T, VEC> P;
+  int k = -1;
+#pragma unroll
+  for (int q = 0; q < 6; ++q) k = (row.tp[q] == t) ? q : k;
+  if (k >= 0)
+    return *reinterpret_cast<const P*>(row.v6row
+                                       + static_cast<size_t>(k) * CC + c);
+  if (t >= row.tlo && t < row.thi)
+    return *reinterpret_cast<const P*>(row.run + static_cast<size_t>(t) * CC
+                                       + c);
+  return zero_pack<T, VEC>();
+}
+
+// The tables of one vertical-pad window row (band, pad row k) at this step.
+template <typename T>
+struct PadRow {
+  const T* src0;    // the source rows of tap 0 and tap 1
+  const T* src1;
+  const int* cz0;   // per position: column within the source row
+  const int* cz1;
+  const T* wz0;     // per position: tap weight
+  const T* wz1;
+};
+
+template <typename T>
+__device__ __forceinline__ PadRow<T> pad_row(const T* bufb,
+                                             const int* pstarts,
+                                             const int* colz, const T* wz,
+                                             int band, int k, int Tw,
+                                             int CC) {
+  PadRow<T> row;
+  const int p0 = (band * 4 + k) * 2;      // tap 0; tap 1 is p0 + 1
+  row.src0 = bufb + static_cast<size_t>(pstarts[p0]) * CC;
+  row.src1 = bufb + static_cast<size_t>(pstarts[p0 + 1]) * CC;
+  row.cz0 = colz + static_cast<size_t>(p0) * Tw;
+  row.cz1 = row.cz0 + Tw;
+  row.wz0 = wz + static_cast<size_t>(p0) * Tw;
+  row.wz1 = row.wz0 + Tw;
+  return row;
+}
+
+// VEC channels [c, c+VEC) of pad position t: the two taps, each rounded
+// once, added and rounded once more.
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> pad_pack(const PadRow<T>& row,
+                                                 int t, int c, int CC) {
+  typedef Pack<T, VEC> P;
+  const float w0 = to_f(row.wz0[t]);
+  const float w1 = to_f(row.wz1[t]);
+  const P a = w0 != 0.f
+      ? *reinterpret_cast<const P*>(
+            row.src0 + static_cast<size_t>(row.cz0[t]) * CC + c)
+      : zero_pack<T, VEC>();
+  const P b = w1 != 0.f
+      ? *reinterpret_cast<const P*>(
+            row.src1 + static_cast<size_t>(row.cz1[t]) * CC + c)
+      : zero_pack<T, VEC>();
+  P o;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e)
+    o.v[e] = from_f<T>(__fadd_rn(tap(a.v[e], w0), tap(b.v[e], w1)));
+  return o;
+}
+
+}  // namespace pcwin

@@ -1,8 +1,9 @@
 """Build the port's native sources into shared libraries, keyed by hash.
 
 Each library lands in ``pseudocylindrical_convolution_torch/_build/`` under
-a name that hashes its sources, the full command line, the compiler's own
-``--version`` text and ``platform.machine()``. A library is reused only on
+a name that hashes its sources and the headers they include, the full
+command line, the compiler's own ``--version`` text and
+``platform.machine()``. A library is reused only on
 an exact key match -- never on a file time -- so a library built on one
 host is never loaded on another with another compiler. Builds write a
 temporary file and rename it into place, so concurrent processes are safe.
@@ -44,17 +45,30 @@ def find_nvcc() -> str:
                        "are built from source on the machine with the card")
 
 
-def build_library(name: str, sources: list[str], cmd: list[str]) -> str:
-    """Compile ``sources`` (paths under csrc/) with ``cmd`` (compiler and
-    flags, without -o) into a cached shared library; returns its path."""
+def library_key(sources, headers, cmd: list[str], compiler_version: str,
+                csrc: str = CSRC) -> str:
+    """The cache key of a library: the bytes of its sources and of the
+    headers they include (paths under ``csrc``), the command line, the
+    compiler's ``--version`` text and the host's machine type."""
     h = hashlib.sha256()
-    for s in sources:
-        with open(os.path.join(CSRC, s), "rb") as f:
-            h.update(s.encode() + b"\0" + f.read())
+    for role, names in ((b"src", sources), (b"hdr", headers)):
+        for s in names:
+            with open(os.path.join(csrc, s), "rb") as f:
+                h.update(role + b"\0" + s.encode() + b"\0" + f.read())
     h.update("\0".join(cmd).encode())
-    h.update(_version(cmd[0]).encode())
+    h.update(compiler_version.encode())
     h.update(platform.machine().encode())
-    out = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:20]}.so")
+    return h.hexdigest()[:20]
+
+
+def build_library(name: str, sources: list[str], cmd: list[str],
+                  headers: tuple[str, ...] = ()) -> str:
+    """Compile ``sources`` (paths under csrc/) with ``cmd`` (compiler and
+    flags, without -o) into a cached shared library; returns its path.
+    ``headers`` are the csrc/ headers the sources include: they are not
+    compiled on their own, but an edit to one changes the key."""
+    key = library_key(sources, headers, cmd, _version(cmd[0]))
+    out = os.path.join(BUILD_DIR, f"{name}-{key}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)

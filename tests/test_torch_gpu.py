@@ -7,19 +7,25 @@ installed; there, skip the JAX-importing conftest:
   python -m pytest tests/test_torch_gpu.py --noconftest -q
 """
 
+import numpy as np
 import pytest
 import torch
 
+from pseudocylindrical_convolution_torch.codec import fused_kernel as fk
 from pseudocylindrical_convolution_torch.codec import window_kernel as wk
 from pseudocylindrical_convolution_torch.codec.wavefront import (
     wavefront_schedule)
+from pseudocylindrical_convolution_torch.codec.wavefront_scan import (
+    ScanWavefrontCodec)
 from pseudocylindrical_convolution_torch.geometry import Geometry
+from pseudocylindrical_convolution_torch.models.cmpnet import (
+    CMPNet, CMPNetConfig)
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the window kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -43,3 +49,70 @@ def test_cuda_kernel_matches_plain(cuda, dtype, npart, h, w, G):
             bad += int((got.view(bits) != want.view(bits)).sum())
         torch.cuda.synchronize()
         assert bad == 0, (CC, bad)
+
+
+def _fused_operands(cuda, dtype, npart, h, w, G, seed):
+    geom = Geometry(npart=npart)
+    _, _, nsteps = wavefront_schedule(geom, h, w, G)
+    tabs = wk.build_window_tables(geom, h, w, G, nsteps, dtype, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    ops = []
+    for CC, CI in ((9 * G, 3 * G), (G, G)):
+        buf = torch.randn((1, tabs.Sbuf, CC), generator=gen,
+                          device=cuda).to(dtype)
+        k = (torch.randn((3 * G, 45 * CI, 3), generator=gen, device=cuda)
+             / (45 * CI) ** 0.5).to(dtype)
+        ops.append((buf, k))
+    return tabs, nsteps, ops
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("npart,h,w,G", [(4, 2, 16, 2), (16, 4, 128, 48)])
+def test_fused_kernel_matches_plain(cuda, dtype, npart, h, w, G):
+    """Within the module's tolerance of the plain version at every step,
+    for the hidden-layer and input-plane widths, on random buffers
+    (margins and trash row included)."""
+    tabs, nsteps, ops = _fused_operands(cuda, dtype, npart, h, w, G, 11)
+    for buf, k in ops:
+        bad = 0
+        for z in range(nsteps):
+            got = fk.fused_cuda(buf, z, tabs, k)
+            want = fk.fused_plain(buf, z, tabs, k)
+            tol = fk.fused_tolerance(buf, z, tabs, k)
+            bad += int(((got - want).abs() > tol).sum())
+        torch.cuda.synchronize()
+        assert bad == 0, (buf.shape[2], bad)
+
+
+@pytest.mark.gpu
+def test_fused_kernel_repeats_bit_for_bit(cuda):
+    tabs, nsteps, ops = _fused_operands(cuda, torch.bfloat16, 16, 4, 128,
+                                        48, 12)
+    for buf, k in ops:
+        a = fk.fused_cuda(buf, nsteps // 2, tabs, k)
+        b = fk.fused_cuda(buf, nsteps // 2, tabs, k)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_fused_profile_roundtrip_on_card(cuda):
+    """The fused profile's encode -> decode on the card at the tiny
+    configuration: equal symbols, and every layer-step a kernel launch."""
+    cfg = CMPNetConfig(valid_dim=8, channels=8, code_channels=8, npart=4)
+    geom = cfg.geometry()
+    h, w, B = 2, 16, 2
+    model = CMPNet(cfg).init_random(torch.Generator().manual_seed(0))
+    model = model.to(cuda).eval()
+    codec = ScanWavefrontCodec(cfg, geom, h, w, batch=B, lanes=4,
+                               device=cuda, window_mode="fused")
+    codec.prepare(model.ent)
+    planes = np.random.default_rng(5).integers(
+        0, 8, (B, geom.npart, cfg.ngroup, h, w))
+    valid = np.zeros(planes.shape[1:], bool)
+    for b, wl in enumerate(geom.hindex(h * geom.npart, w)):
+        valid[b, :, :, :int(wl)] = True
+    before = fk.launches
+    dec = codec.decode_streams(codec.encode_planes(planes))
+    assert ((dec == planes) | ~valid[None]).all()
+    assert fk.launches - before == 2 * 12 * codec.nsteps
