@@ -19,21 +19,26 @@ seconds:
      bound;
   4. fused_kernel: the fused window+conv kernel against its plain version
      at the same shapes (CI=144 and CI=48, cout3=432) and steps, with a
-     seeded random bf16 K, within the module's stated tolerance; two
-     launches bit-identical; timed beside the plain version, the window
-     profile's torch.bmm on pre-gathered taps (a yardstick for the conv
-     half only, which the fused profile never calls) and its bound;
+     seeded random bf16 K, within the module's stated tolerance, and bit
+     for bit against fused_ordered (the plain version in the kernel's own
+     sum order); its bands and groups per block, registers and shared
+     memory per block; two launches bit-identical; timed beside the
+     plain version, the window profile's torch.bmm on pre-gathered taps
+     (a yardstick for the conv half only, which the fused profile never
+     calls) and its bound;
   5. codec: the flagship MSE model (demo/mse/10_192.pkl through the port's
      loader; a checkout without it fails here) encodes and decodes one
      smooth 512x1024 image through scan_encode_images / scan_decode_images
      (the default window profile); the decoded symbol planes must equal
      the encoded ones, and the window kernel must have launched exactly
-     2 x 12 x nsteps times and the fused kernel never;
+     2 x 12 x nsteps times and the fused kernel never; the stream's
+     bytes and sha256;
   6. fused_codec: the same planes through get_scan_codec(...,
      window_mode="fused").encode_files and scan_decode_images, which
      picks the profile from the header; equal symbol planes, flags2 =
      FLAG2_TORCH | FLAG2_TORCH_FUSED, exactly 2 x 12 x nsteps fused
-     launches and no window launch, and the same reconstruction.
+     launches and no window launch, and the same reconstruction; the
+     stream's bytes and sha256.
 
 With --profile, one more encode of the same plane per profile runs under
 torch.profiler and a "profile" line gives its kernels by device time.
@@ -44,6 +49,7 @@ Then a {"kernels": [...]} line, the nvidia-smi line again, and last
 from __future__ import annotations
 
 import concurrent.futures
+import hashlib
 import json
 import math
 import os
@@ -87,25 +93,31 @@ def cuda_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 50, only: str | None = None) -> float:
+def device_ms(fn, iters: int = 50, only: str | None = None,
+              tries: int = 3) -> float:
     """Device time per call: the summed time of the CUDA kernels one call
     runs (those whose name holds ``only``, if given), from torch.profiler's
-    CUPTI trace. Raises if the trace holds no device time."""
+    CUPTI trace. Every kernel a call runs, runs a whole number of times
+    per call, so a trace in which a kernel was not recorded a whole
+    multiple of ``iters`` times (the tracer drops events now and then) is
+    taken again; raises after ``tries`` such traces."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    total = sum(getattr(e, "self_device_time_total", 0)
-                for e in prof.key_averages()
-                if only is None or only in e.key)
-    if total <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    return total / 1e3 / iters
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if getattr(e, "self_device_time_total", 0) > 0
+              and (only is None or only in e.key)]
+        if ev and all(e.count % iters == 0 for e in ev):
+            return sum(e.self_device_time_total for e in ev) / 1e3 / iters
+    raise AssertionError(f"the profiler recorded no complete trace in "
+                         f"{tries} tries")
 
 
 def kernel_phase(wk, geom, G, h, w, nsteps):
@@ -177,15 +189,18 @@ def fused_kernel_phase(fk, wk, wavefront_scan, geom, G, h, w, nsteps):
                           ).to(torch.bfloat16)
         k = (torch.randn((3 * G, 45 * CI, n), generator=gen, device=dev)
              / math.sqrt(45 * CI)).to(torch.bfloat16)
-        bad, max_abs, max_rel = 0, 0.0, 0.0
+        bad, ord_bad, max_abs, max_rel = 0, 0, 0.0, 0.0
         for z in zs:
             got = fk.fused_cuda(buf, int(z), tabs, k)
             want = fk.fused_plain(buf, int(z), tabs, k)
             tol = fk.fused_tolerance(buf, int(z), tabs, k)
+            ordered = fk.fused_ordered(buf, int(z), tabs, k)
             torch.cuda.synchronize()
             if not torch.isfinite(got).all():
                 raise AssertionError(f"fused kernel gave non-finite cells "
                                      f"at CI={CI}, step {z}")
+            ord_bad += int((got.view(torch.int32)
+                            != ordered.view(torch.int32)).sum())
             err = (got - want).abs()
             bad += int((err > tol).sum())
             max_abs = max(max_abs, float(err.max()))
@@ -196,6 +211,10 @@ def fused_kernel_phase(fk, wk, wavefront_scan, geom, G, h, w, nsteps):
                 f"fused kernel differs from its plain version beyond "
                 f"{fk.TOL} x sum|products| in {bad} cells at CI={CI} "
                 f"(max abs err {max_abs})")
+        if ord_bad:
+            raise AssertionError(
+                f"fused kernel differs from fused_ordered (its own sum "
+                f"order) in {ord_bad} cells at CI={CI}")
         zt = int(zs[len(zs) // 2])
         a = fk.fused_cuda(buf, zt, tabs, k)
         b = fk.fused_cuda(buf, zt, tabs, k)
@@ -224,7 +243,9 @@ def fused_kernel_phase(fk, wk, wavefront_scan, geom, G, h, w, nsteps):
             return torch.bmm(taps, kwin)
 
         shapes[CC] = {
-            "CI": CI, "mismatches": bad, "max_abs_err": max_abs,
+            **fk.kernel_info(torch.bfloat16, tabs, CC, CI, n),
+            "CI": CI, "mismatches": bad, "ordered_mismatches": ord_bad,
+            "max_abs_err": max_abs,
             "max_err_over_abs_sum": max_rel, "tolerance": fk.TOL,
             "steps": len(zs), "repeat_bit_identical": True,
             "ms": device_ms(kern, only="fused_kernel"),
@@ -248,24 +269,38 @@ def ptxas_lines(lib_path: str) -> list[str]:
                 if "entry function" in ln or "registers" in ln]
 
 
-def profile_phase(codec, planes, wall_s: float) -> None:
+def profile_phase(codec, planes, wall_s: float, kernel: str,
+                  launches: int, tries: int = 3) -> None:
     """Where a teacher-mode (encode) run of the step loop spends device
     time: kernels by summed device time, and the device's busy share of
-    the unprofiled encode's wall time."""
+    the unprofiled encode's wall time. A trace that did not record all
+    ``launches`` of ``kernel`` (the tracer drops events now and then) is
+    taken again; raises after ``tries`` such traces."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     teacher = torch.as_tensor(planes).to("cuda").reshape(1, codec.P)
-    t0 = time.time()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        codec.run(teacher=teacher)
-        torch.cuda.synchronize()
-    ev = [(e.key, e.self_device_time_total / 1e3, e.count)
-          for e in prof.key_averages() if e.self_device_time_total > 0]
+    for _ in range(tries):
+        t0 = time.time()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            codec.run(teacher=teacher)
+            torch.cuda.synchronize()
+        ev = [(e.key, e.self_device_time_total / 1e3, e.count)
+              for e in prof.key_averages() if e.self_device_time_total > 0]
+        if sum(c for k, _, c in ev if kernel in k) == launches:
+            break
+    else:
+        raise AssertionError(f"the profiler missed launches of {kernel} "
+                             f"in {tries} tries")
     busy = sum(t for _, t, _ in ev) / 1e3
     top = sorted(ev, key=lambda e: -e[1])[:15]
     emit("profile", t0, window_mode=codec.window_mode, busy_s=busy,
          busy_share_of_encode=busy / wall_s,
          top=[{"kernel": k[:90], "ms": t, "calls": c} for k, t, c in top])
+
+
+def sha256_of(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
 
 
 def smooth_image(seed: int = 0, hw=(512, 1024)):
@@ -359,6 +394,7 @@ def main() -> int:
         t_dec = time.time() - t0
         launches = wk.launches                  # ... and ends here
         stray = fk.launches
+        digest = sha256_of(fn)
     lanes = wavefront_scan.auto_lanes(geom, h, w, cfg.ngroup)
     codec = wavefront_scan.get_scan_codec(cfg, geom, h, w, 1, lanes)
     valid = np.zeros((geom.npart, cfg.ngroup, h, w), bool)
@@ -380,7 +416,7 @@ def main() -> int:
     psnr = 10 * math.log10(1.0 / max(mse, 1e-12))
     emit("codec", t_codec, window_mode=codec.window_mode,
          encode_s=round(t_enc, 3), decode_s=round(t_dec, 3),
-         bytes=size, bpp=size * 8 / (H * W), psnr_db=psnr,
+         bytes=size, sha256=digest, bpp=size * 8 / (H * W), psnr_db=psnr,
          nsteps=nsteps, lanes=codec.L, symbols=codec.nsym,
          symbol_mismatches=nbad, window_launches=launches)
 
@@ -401,6 +437,7 @@ def main() -> int:
         f_dec = time.time() - t0
         flaunches, stray = fk.launches, wk.launches   # ... and ends here
         flags2 = container.read_stream(fn)["flags2"]
+        fdigest = sha256_of(fn)
     fbad = int(((fplanes != planes) & valid[None]).sum())
     if fbad:
         raise AssertionError(f"fused profile: decoded symbol plane differs "
@@ -417,6 +454,7 @@ def main() -> int:
                              "from the window profile's on the same latents")
     emit("fused_codec", t_codec, window_mode=fcodec.window_mode,
          encode_s=round(f_enc, 3), decode_s=round(f_dec, 3), bytes=fsize,
+         sha256=fdigest,
          bpp=fsize * 8 / (H * W), psnr_db=psnr, flags2=flags2,
          symbol_mismatches=fbad, fused_launches=flaunches,
          window_launches=stray)
@@ -451,8 +489,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bytes",
             "flops")} for v in fshapes.values()}}
     if "--profile" in sys.argv[1:]:
-        profile_phase(codec, planes, t_enc)
-        profile_phase(fcodec, planes, f_enc)
+        profile_phase(codec, planes, t_enc, "window_kernel", 12 * nsteps)
+        profile_phase(fcodec, planes, f_enc, "fused_kernel", 12 * nsteps)
     print(json.dumps({"kernels": [entry, fentry]}), flush=True)
     print(smi, flush=True)
     print(f"wall {time.time() - T_START:.1f} s", file=sys.stderr)

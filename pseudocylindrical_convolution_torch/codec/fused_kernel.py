@@ -31,6 +31,13 @@ products of each cell (``fused_tolerance``), the form of the standard
 bound on a reordered fp32 sum. Bit-exactness of a fused stream rests on
 the kernel alone: its sum order is fixed by the shapes, so an encode and a
 decode on the card agree.
+
+``fused_ordered`` takes the kernel's own sum order instead, for bf16
+operands, and is held to the kernel bit for bit: each cell's 45*CI terms
+are split over ``THREADS`` threads (thread t sums terms t, t+256, ... in
+order from +0), then a butterfly over each warp's 32 lanes, then the
+warps' sums in warp order. Only the tests and chip_smoke.py call it; the
+codec never does.
 """
 
 from __future__ import annotations
@@ -52,6 +59,8 @@ from pseudocylindrical_convolution_torch.utils.build import (
 TOL = 1e-5
 MAX_H = 8           # the kernel's register tile: rows per band
 MAX_N = 4           # ... and output channels per (subnet, group)
+THREADS = 256       # the kernel's block: the strided shares of each cell
+WARP = 32
 
 # Launches of the CUDA kernel (one per ``fused`` call on a CUDA tensor).
 launches = 0
@@ -89,6 +98,69 @@ def fused_plain(buf: torch.Tensor, z: int, tabs: WindowTables,
     return contract(window_plain(buf, z, tabs), k)
 
 
+def ordered_sum(terms: torch.Tensor) -> torch.Tensor:
+    """fp32 sums over the last axis in the kernel's order: thread t of
+    ``THREADS`` adds terms t, t+THREADS, ... in order into +0 (the terms
+    padded with +0 to whole trips), a butterfly over each warp's lanes
+    (lane i adds lane i+o, o = 16 ... 1), then the warps' sums in warp
+    order into +0."""
+    nq = terms.shape[-1]
+    trips = -(-nq // THREADS)
+    x = torch.nn.functional.pad(terms.float(), (0, trips * THREADS - nq))
+    x = x.reshape(terms.shape[:-1] + (trips, THREADS))
+    acc = torch.zeros(x.shape[:-2] + (THREADS,), dtype=torch.float32,
+                      device=terms.device)
+    for i in range(trips):
+        acc = acc + x[..., i, :]
+    acc = acc.reshape(acc.shape[:-1] + (THREADS // WARP, WARP))
+    o = WARP // 2
+    while o:
+        acc = acc[..., :o] + acc[..., o:2 * o]
+        o //= 2
+    out = torch.zeros(acc.shape[:-2], dtype=torch.float32,
+                      device=terms.device)
+    for w in range(THREADS // WARP):
+        out = out + acc[..., w, 0]
+    return out
+
+
+def contract_ordered(win: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``contract`` with the kernel's sum order (``ordered_sum``) over each
+    cell's 45*CI products, taken 4 bands at a time to bound the memory of
+    the products (0.7 GB for all 16 at the flagship). bf16 operands only:
+    their products are exact in fp32, as in the kernel's fmaf; an fp32
+    product would round here and not there."""
+    if win.dtype != torch.bfloat16 or k.dtype != torch.bfloat16:
+        raise TypeError(f"the kernel's order is emulated for bf16 operands "
+                        f"only, not {win.dtype} x {k.dtype}: fmaf does not "
+                        f"round an fp32 product, a torch multiply does")
+    B, npart, hp4, T, CC = win.shape
+    h, G = hp4 - 4, T - 8
+    CI, n = k.shape[1] // 45, k.shape[2]
+    # K as (s, g, j, dt, di, ci): each cell's terms in K's row order
+    kq = k.float().reshape(3, G, 9, 5, CI, n).permute(0, 1, 5, 2, 3, 4)
+    out = []
+    for p0 in range(0, npart, 4):
+        x = win[:, p0:p0 + 4].float()
+        nb = x.shape[1]
+        x = (x.reshape(B, nb, hp4, T, 3, CI) if CC == 3 * CI
+             else x[..., None, :].expand(B, nb, hp4, T, 3, CI)).contiguous()
+        s = x.stride()
+        # taps[b, p, r, s, t', dt, di, c] = window[b, p, r+di, dt+t', s, c]
+        taps = x.as_strided((B, nb, h, 3, G, 9, 5, CI),
+                            (s[0], s[1], s[2], s[4], s[3], s[3], s[2], s[5]))
+        prods = taps.flip(4)[:, :, :, :, :, None] * kq
+        out.append(ordered_sum(prods.reshape(B, nb, h, 3 * G * n, 45 * CI)))
+    return torch.cat(out, 1)
+
+
+def fused_ordered(buf: torch.Tensor, z: int, tabs: WindowTables,
+                  k: torch.Tensor) -> torch.Tensor:
+    """The kernel's cells, bit for bit, for bf16 buffers: the plain window,
+    contracted in the kernel's sum order."""
+    return contract_ordered(window_plain(buf, z, tabs), k)
+
+
 def fused_tolerance(buf: torch.Tensor, z: int, tabs: WindowTables,
                     k: torch.Tensor) -> torch.Tensor:
     """Per cell, how far the kernel may be from ``fused_plain``: ``TOL``
@@ -108,8 +180,29 @@ def _load():
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [
                 ctypes.c_void_p]
+        lib.pc_fused_info.restype = ctypes.c_int
+        lib.pc_fused_info.argtypes = [ctypes.c_int] * 7 + [
+            ctypes.POINTER(ctypes.c_int)]
         _lib = lib
     return _lib
+
+
+INFO_KEYS = ("NB", "groups_per_block", "smem_bytes", "registers",
+             "spill_bytes", "blocks")
+
+
+def kernel_info(dtype: torch.dtype, tabs: WindowTables, CC: int, CI: int,
+                n: int) -> dict:
+    """What a launch of the CUDA kernel runs at this shape (B=1, 16-byte
+    aligned operands): its bands per block NB, output groups per block,
+    dynamic shared memory per block, registers and spill bytes per thread,
+    and blocks. Needs the card."""
+    info = (ctypes.c_int * len(INFO_KEYS))()
+    err = _load().pc_fused_info(int(dtype == torch.bfloat16), tabs.npart,
+                                tabs.h, tabs.T, CC, CI, n, info)
+    if err != 0:
+        raise RuntimeError(f"pc_fused_info failed: cudaError {err}")
+    return dict(zip(INFO_KEYS, info))
 
 
 def _check_kernel(buf: torch.Tensor, tabs: WindowTables,

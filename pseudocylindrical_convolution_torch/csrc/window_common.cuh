@@ -17,6 +17,13 @@
 //     the two taps are added and rounded once more.
 // __fmul_rn and __fadd_rn keep the compiler from contracting a tap and the
 // sum into one FMA, which would round differently.
+//
+// The window kernel reads a row's tables once and builds its elements
+// (interior_pack, pad_pack). The fused kernel first resolves each (row, t)
+// of its sub-window into a Slot in shared memory (interior_slot,
+// pad_slot), then builds the elements from the slots; both go through the
+// same source selection (interior_src, pad_slot) and the same pad
+// arithmetic (pad_sum).
 
 #pragma once
 
@@ -62,6 +69,26 @@ __device__ __forceinline__ Pack<T, VEC> zero_pack() {
   return p;
 }
 
+// VEC channels [c, c+VEC) of a source position, or +0.0 where it has none.
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> load_or_zero(const T* src, int c) {
+  return src ? *reinterpret_cast<const Pack<T, VEC>*>(src + c)
+             : zero_pack<T, VEC>();
+}
+
+// A pad element: the two taps, each rounded once, added and rounded once
+// more.
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> pad_sum(const Pack<T, VEC>& a,
+                                                const Pack<T, VEC>& b,
+                                                float w0, float w1) {
+  Pack<T, VEC> o;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e)
+    o.v[e] = from_f<T>(__fadd_rn(tap(a.v[e], w0), tap(b.v[e], w1)));
+  return o;
+}
+
 // The tables of one interior window row (band, r) at this step.
 template <typename T>
 struct InteriorRow {
@@ -87,21 +114,25 @@ __device__ __forceinline__ InteriorRow<T> interior_row(
   return row;
 }
 
+// The source of interior position t: its patch value, the run, or null
+// (+0.0 outside the valid width).
+template <typename T>
+__device__ __forceinline__ const T* interior_src(const InteriorRow<T>& row,
+                                                 int t, int CC) {
+  int k = -1;
+#pragma unroll
+  for (int q = 0; q < 6; ++q) k = (row.tp[q] == t) ? q : k;
+  if (k >= 0) return row.v6row + static_cast<size_t>(k) * CC;
+  if (t >= row.tlo && t < row.thi)
+    return row.run + static_cast<size_t>(t) * CC;
+  return nullptr;
+}
+
 // VEC channels [c, c+VEC) of interior position t: patch, run or +0.0.
 template <typename T, int VEC>
 __device__ __forceinline__ Pack<T, VEC> interior_pack(
     const InteriorRow<T>& row, int t, int c, int CC) {
-  typedef Pack<T, VEC> P;
-  int k = -1;
-#pragma unroll
-  for (int q = 0; q < 6; ++q) k = (row.tp[q] == t) ? q : k;
-  if (k >= 0)
-    return *reinterpret_cast<const P*>(row.v6row
-                                       + static_cast<size_t>(k) * CC + c);
-  if (t >= row.tlo && t < row.thi)
-    return *reinterpret_cast<const P*>(row.run + static_cast<size_t>(t) * CC
-                                       + c);
-  return zero_pack<T, VEC>();
+  return load_or_zero<T, VEC>(interior_src(row, t, CC), c);
 }
 
 // The tables of one vertical-pad window row (band, pad row k) at this step.
@@ -132,27 +163,42 @@ __device__ __forceinline__ PadRow<T> pad_row(const T* bufb,
   return row;
 }
 
+// One position t of a window row, resolved from the tables: an interior
+// element copies src0 (null: +0.0); a pad element is pad_sum of the taps
+// at src0 and src1 (null where the weight is 0) with weights w0, w1.
+template <typename T>
+struct Slot {
+  const T* src0;
+  const T* src1;
+  float w0, w1;
+  int pad;
+};
+
+template <typename T>
+__device__ __forceinline__ Slot<T> interior_slot(const InteriorRow<T>& row,
+                                                 int t, int CC) {
+  return Slot<T>{interior_src(row, t, CC), nullptr, 0.f, 0.f, 0};
+}
+
+template <typename T>
+__device__ __forceinline__ Slot<T> pad_slot(const PadRow<T>& row, int t,
+                                            int CC) {
+  const float w0 = to_f(row.wz0[t]);
+  const float w1 = to_f(row.wz1[t]);
+  return Slot<T>{
+      w0 != 0.f ? row.src0 + static_cast<size_t>(row.cz0[t]) * CC : nullptr,
+      w1 != 0.f ? row.src1 + static_cast<size_t>(row.cz1[t]) * CC : nullptr,
+      w0, w1, 1};
+}
+
 // VEC channels [c, c+VEC) of pad position t: the two taps, each rounded
 // once, added and rounded once more.
 template <typename T, int VEC>
 __device__ __forceinline__ Pack<T, VEC> pad_pack(const PadRow<T>& row,
                                                  int t, int c, int CC) {
-  typedef Pack<T, VEC> P;
-  const float w0 = to_f(row.wz0[t]);
-  const float w1 = to_f(row.wz1[t]);
-  const P a = w0 != 0.f
-      ? *reinterpret_cast<const P*>(
-            row.src0 + static_cast<size_t>(row.cz0[t]) * CC + c)
-      : zero_pack<T, VEC>();
-  const P b = w1 != 0.f
-      ? *reinterpret_cast<const P*>(
-            row.src1 + static_cast<size_t>(row.cz1[t]) * CC + c)
-      : zero_pack<T, VEC>();
-  P o;
-#pragma unroll
-  for (int e = 0; e < VEC; ++e)
-    o.v[e] = from_f<T>(__fadd_rn(tap(a.v[e], w0), tap(b.v[e], w1)));
-  return o;
+  const Slot<T> s = pad_slot(row, t, CC);
+  return pad_sum<T, VEC>(load_or_zero<T, VEC>(s.src0, c),
+                         load_or_zero<T, VEC>(s.src1, c), s.w0, s.w1);
 }
 
 }  // namespace pcwin

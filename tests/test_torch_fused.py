@@ -27,6 +27,9 @@ from pseudocylindrical_convolution_tpu.codec.wavefront_scan import (
 
 from pseudocylindrical_convolution_torch.codec import container
 from pseudocylindrical_convolution_torch.codec import fused_kernel as fk
+from pseudocylindrical_convolution_torch.codec import window_kernel as wk
+from pseudocylindrical_convolution_torch.codec.wavefront import (
+    wavefront_schedule)
 from pseudocylindrical_convolution_torch.codec.wavefront_scan import (
     ScanWavefrontCodec, bias_prelu, get_scan_codec, scan_decode_images,
     scan_encode_images)
@@ -221,6 +224,70 @@ def test_fused_bytes_and_flops(codecs):
     assert k.numel() * 4 + cells * 4 < n < k.numel() * 4 + cells * 4 + (
         tc.Sbuf + tc.npart * H * 6 + 4096) * CC * 4
     assert fk.fused_flops(buf, tc.tabs, k) == 2 * cells * 45 * (CC // 3)
+
+
+@pytest.mark.parametrize("width", ["hidden", "input"])
+def test_fused_ordered_within_tol_of_plain(width):
+    """The kernel's sum order (fused_ordered, bf16) stays within TOL x
+    sum|products| of the tap-order plain version at every step."""
+    geom = CFG.geometry()
+    G = CFG.ngroup
+    _, _, nsteps = wavefront_schedule(geom, H, W, G)
+    tabs = wk.build_window_tables(geom, H, W, G, nsteps, torch.bfloat16,
+                                  "cpu")
+    CC, CI = (9 * G, 3 * G) if width == "hidden" else (G, G)
+    rng = np.random.default_rng(41 if width == "hidden" else 42)
+    buf = torch.as_tensor(rng.standard_normal((B, tabs.Sbuf, CC)),
+                          dtype=torch.float32).to(torch.bfloat16)
+    k = torch.as_tensor(rng.standard_normal((3 * G, 45 * CI, 3))
+                        / np.sqrt(45 * CI),
+                        dtype=torch.float32).to(torch.bfloat16)
+    for z in range(nsteps):
+        got = fk.fused_ordered(buf, z, tabs, k)
+        err = (got - fk.fused_plain(buf, z, tabs, k)).abs()
+        assert (err <= fk.fused_tolerance(buf, z, tabs, k)).all(), z
+        assert got.shape == (B, geom.npart, H, 3 * G * 3)
+
+
+# Terms of one cell (q: value) whose fp32 sum depends on the order, with
+# the sum in the kernel's order and in plain sequence. 2^24 + 1 rounds to
+# 2^24, so a 1 survives only where it is not added to 2^24 first.
+BIG = 2.0 ** 24
+ORDER_CASES = {
+    # thread 0 adds q=0 and q=256 (they cancel), thread 1 holds the 1
+    "strided_shares": ({0: BIG, 1: 1.0, 256: -BIG}, 1.0, 0.0),
+    # lanes 0 and 16 cancel in the butterfly's first round
+    "butterfly": ({0: BIG, 1: 1.0, 16: -BIG}, 1.0, 0.0),
+    # warps 0, 2, 3 added in warp order: (1 + 2^24) - 2^24 = 0, where a
+    # pairwise tree over the warps would give (1 + 0) + (2^24 - 2^24) = 1
+    "warp_order": ({0: 1.0, 64: BIG, 96: -BIG}, 0.0, 0.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ORDER_CASES))
+def test_fused_ordered_takes_the_kernel_order(case):
+    """A hand-built cell: an all-ones window, K holding the terms. The
+    ordered contraction gives the strided -> butterfly -> warp-order sum,
+    not the sequential one."""
+    terms, want, sequential = ORDER_CASES[case]
+    CI = 8                                  # 360 terms: two thread trips
+    win = torch.ones((1, 1, 5, 9, CI), dtype=torch.bfloat16)  # h=1, G=1
+    k = torch.zeros((3, 45 * CI, 1), dtype=torch.bfloat16)
+    for q, v in terms.items():
+        k[1, q, 0] = v                      # subnet 1's cell
+    got = fk.contract_ordered(win, k).reshape(3)
+    assert got.tolist() == [0.0, want, 0.0]
+    seq = torch.zeros((), dtype=torch.float32)
+    for v in k[1, :, 0].float():
+        seq = seq + v
+    assert float(seq) == sequential
+    assert float(fk.ordered_sum(k[1, :, 0].float())) == want
+
+
+def test_fused_ordered_is_bf16_only():
+    win = torch.ones((1, 1, 5, 9, 8))
+    with pytest.raises(TypeError, match="bf16"):
+        fk.contract_ordered(win, torch.zeros((3, 360, 1)))
 
 
 def test_window_mode_is_checked_and_keyed():

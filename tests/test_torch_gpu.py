@@ -85,6 +85,48 @@ def test_fused_kernel_matches_plain(cuda, dtype, npart, h, w, G):
         assert bad == 0, (buf.shape[2], bad)
 
 
+def _ordered_mismatches(tabs, nsteps, buf, k):
+    """Cells where the kernel and fused_ordered differ, over every step."""
+    bad = 0
+    for z in range(nsteps):
+        got = fk.fused_cuda(buf, z, tabs, k)
+        want = fk.fused_ordered(buf, z, tabs, k)
+        bad += int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    torch.cuda.synchronize()
+    return bad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("npart,h,w,G", [(4, 2, 16, 2), (16, 4, 128, 48)])
+def test_fused_kernel_matches_ordered(cuda, npart, h, w, G):
+    """Bit for bit the plain version in the kernel's own sum order
+    (bf16), at every step, for both widths."""
+    tabs, nsteps, ops = _fused_operands(cuda, torch.bfloat16, npart, h, w,
+                                        G, 13)
+    for buf, k in ops:
+        assert _ordered_mismatches(tabs, nsteps, buf, k) == 0, buf.shape[2]
+
+
+@pytest.mark.gpu
+def test_fused_kernel_short_chunks(cuda):
+    """G = 8 output groups are not a multiple of the groups per block, so
+    the last chunk of groups of each subnet is short: still bit for bit the
+    ordered plain version, and within tolerance of fused_plain."""
+    npart, h, w, G = 10, 4, 64, 8
+    tabs, nsteps, ops = _fused_operands(cuda, torch.bfloat16, npart, h, w,
+                                        G, 14)
+    for buf, k in ops:
+        CC, CI = buf.shape[2], k.shape[1] // 45
+        info = fk.kernel_info(torch.bfloat16, tabs, CC, CI, k.shape[2])
+        assert G % info["groups_per_block"], info
+        assert _ordered_mismatches(tabs, nsteps, buf, k) == 0, CC
+        for z in (0, nsteps // 2, nsteps - 1):
+            err = (fk.fused_cuda(buf, z, tabs, k)
+                   - fk.fused_plain(buf, z, tabs, k)).abs()
+            assert (err <= fk.fused_tolerance(buf, z, tabs, k)).all(), (CC,
+                                                                         z)
+
+
 @pytest.mark.gpu
 def test_fused_kernel_repeats_bit_for_bit(cuda):
     tabs, nsteps, ops = _fused_operands(cuda, torch.bfloat16, 16, 4, 128,

@@ -43,6 +43,16 @@ H, W, B, L = 2, 16, 2, 4
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The tensors here are tiny: one intra-op thread keeps torch from
+    spinning a thread pool against the other test processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def model():
     return load_model(numpy_tree(1), CFG, device="cpu")
