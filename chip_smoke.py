@@ -13,19 +13,22 @@ seconds:
      started together; the ptxas lines of the two kernels;
   3. kernel: the skew-window kernel against its plain version at the
      flagship shapes (B=1, npart=16, h=4, T=56, CC=432 and CC=48), bit for
-     bit over a spread of steps on a seeded random bf16 buffer, then timed
-     (CUPTI device time) beside the plain version, one torch.index_select
-     that gathers the same rows (a yardstick the port never calls) and its
+     bit at every step on a seeded random bf16 buffer (and the plain
+     version built from the kernel's own tables, window_from_tables, bit
+     for bit too); one device kernel per call; then timed (CUPTI device
+     time of the kernel and of the whole call, host wall per call) beside
+     the plain version, one torch.index_select of the tap-0 rows (a floor:
+     it gathers less than the window; the port never calls it) and its
      bound;
   4. fused_kernel: the fused window+conv kernel against its plain version
      at the same shapes (CI=144 and CI=48, cout3=432) and steps, with a
      seeded random bf16 K, within the module's stated tolerance, and bit
      for bit against fused_ordered (the plain version in the kernel's own
      sum order); its bands and groups per block, registers and shared
-     memory per block; two launches bit-identical; timed beside the
-     plain version, the window profile's torch.bmm on pre-gathered taps
-     (a yardstick for the conv half only, which the fused profile never
-     calls) and its bound;
+     memory per block; two launches bit-identical; one device kernel
+     per call; timed beside the plain version, the window profile's
+     torch.bmm on pre-gathered taps (a yardstick for the conv half only,
+     which the fused profile never calls) and its bound;
   5. codec: the flagship MSE model (demo/mse/10_192.pkl through the port's
      loader; a checkout without it fails here) encodes and decodes one
      smooth 512x1024 image through scan_encode_images / scan_decode_images
@@ -93,14 +96,15 @@ def cuda_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 50, only: str | None = None,
-              tries: int = 3) -> float:
-    """Device time per call: the summed time of the CUDA kernels one call
-    runs (those whose name holds ``only``, if given), from torch.profiler's
-    CUPTI trace. Every kernel a call runs, runs a whole number of times
-    per call, so a trace in which a kernel was not recorded a whole
-    multiple of ``iters`` times (the tracer drops events now and then) is
-    taken again; raises after ``tries`` such traces."""
+def device_profile(fn, iters: int = 50, only: str | None = None,
+                   tries: int = 3) -> tuple[float, float]:
+    """Device time and kernel launches per call: the summed time and the
+    count of the CUDA kernels one call runs (those whose name holds
+    ``only``, if given), from torch.profiler's CUPTI trace. Every kernel a
+    call runs, runs a whole number of times per call, so a trace in which
+    a kernel was not recorded a whole multiple of ``iters`` times (the
+    tracer drops events now and then) is taken again; raises after
+    ``tries`` such traces."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -115,9 +119,15 @@ def device_ms(fn, iters: int = 50, only: str | None = None,
               if getattr(e, "self_device_time_total", 0) > 0
               and (only is None or only in e.key)]
         if ev and all(e.count % iters == 0 for e in ev):
-            return sum(e.self_device_time_total for e in ev) / 1e3 / iters
+            return (sum(e.self_device_time_total for e in ev) / 1e3 / iters,
+                    sum(e.count for e in ev) / iters)
     raise AssertionError(f"the profiler recorded no complete trace in "
                          f"{tries} tries")
+
+
+def device_ms(fn, iters: int = 50, only: str | None = None) -> float:
+    """Device time per call (``device_profile``)."""
+    return device_profile(fn, iters, only)[0]
 
 
 def kernel_phase(wk, geom, G, h, w, nsteps):
@@ -127,30 +137,37 @@ def kernel_phase(wk, geom, G, h, w, nsteps):
     dev = torch.device("cuda")
     tabs = wk.build_window_tables(geom, h, w, G, nsteps, torch.bfloat16, dev)
     gen = torch.Generator(device=dev).manual_seed(1234)
-    zs = sorted(set(np.linspace(0, nsteps - 1, 12).round().astype(int)))
     shapes = {}
     for CC in (3 * G * 3, G):
         buf = torch.randn((1, tabs.Sbuf, CC), generator=gen, device=dev
                           ).to(torch.bfloat16)
-        bad, maxerr = 0, 0.0
-        for z in zs:
-            got = wk.window_cuda(buf, int(z), tabs)
-            want = wk.window_plain(buf, int(z), tabs)
+        bad, tab_bad, maxerr = 0, 0, 0.0
+        for z in range(nsteps):
+            got = wk.window_cuda(buf, z, tabs)
+            want = wk.window_plain(buf, z, tabs)
+            tab = wk.window_from_tables(buf, z, tabs)
             torch.cuda.synchronize()
             bad += int((got.view(torch.int16) != want.view(torch.int16))
                        .sum())
+            tab_bad += int((tab.view(torch.int16) != want.view(torch.int16))
+                           .sum())
             maxerr = max(maxerr, float((got.float() - want.float()).abs()
                                        .max()))
-        if bad:
+        if bad or tab_bad:
             raise AssertionError(f"window kernel differs from its plain "
-                                 f"version in {bad} elements at CC={CC}")
-        zt = int(zs[len(zs) // 2])
+                                 f"version in {bad} elements at CC={CC}; "
+                                 f"the table-driven plain version in "
+                                 f"{tab_bad}")
+        # timed at the step earlier smokes timed: the middle one of 12
+        # spread over the steps
+        zt = int(np.linspace(0, nsteps - 1, 12).round()[6])
         # the rows of tap 0, the gather a library call can do in one go
         cp = tabs.cp_base + zt
         cc = torch.where((cp < 0) | (cp >= w + 4), w + 4, cp)
         rows = torch.gather(tabs.idx[0], 2, cc).reshape(-1)
         flat = buf[0]
         nbytes = wk.window_bytes(buf, zt, tabs)
+
         def kern():
             return wk.window_cuda(buf, zt, tabs)
 
@@ -160,14 +177,21 @@ def kernel_phase(wk, geom, G, h, w, nsteps):
         def library():
             return torch.index_select(flat, 0, rows)
 
+        wrapper_ms, per_call = device_profile(kern)
+        if per_call != 1:
+            raise AssertionError(f"a window_cuda call ran {per_call} device "
+                                 f"kernels at CC={CC}, expected 1")
         shapes[CC] = {
-            "mismatches": bad, "max_abs_err": maxerr, "steps": len(zs),
+            "mismatches": bad, "table_plain_mismatches": tab_bad,
+            "max_abs_err": maxerr, "steps": nsteps,
             "ms": device_ms(kern, only="window_kernel"),
-            "wrapper_device_ms": device_ms(kern),
+            "wrapper_device_ms": wrapper_ms,
+            "launches_per_call": per_call,
             "wrapper_call_ms": cuda_ms(kern),
             "plain_ms": device_ms(plain),
             "plain_call_ms": cuda_ms(plain),
             "library_ms": device_ms(library),
+            "library_is": "floor: index_select of the tap-0 rows only",
             "bytes": nbytes,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
     return shapes
@@ -242,6 +266,10 @@ def fused_kernel_phase(fk, wk, wavefront_scan, geom, G, h, w, nsteps):
         def library():
             return torch.bmm(taps, kwin)
 
+        wrapper_ms, per_call = device_profile(kern)
+        if per_call != 1:
+            raise AssertionError(f"a fused_cuda call ran {per_call} device "
+                                 f"kernels at CI={CI}, expected 1")
         shapes[CC] = {
             **fk.kernel_info(torch.bfloat16, tabs, CC, CI, n),
             "CI": CI, "mismatches": bad, "ordered_mismatches": ord_bad,
@@ -249,7 +277,7 @@ def fused_kernel_phase(fk, wk, wavefront_scan, geom, G, h, w, nsteps):
             "max_err_over_abs_sum": max_rel, "tolerance": fk.TOL,
             "steps": len(zs), "repeat_bit_identical": True,
             "ms": device_ms(kern, only="fused_kernel"),
-            "wrapper_device_ms": device_ms(kern),
+            "wrapper_device_ms": wrapper_ms, "launches_per_call": per_call,
             "wrapper_call_ms": cuda_ms(kern),
             "plain_ms": device_ms(plain, iters=10),
             "library_ms": device_ms(library),
@@ -470,9 +498,11 @@ def main() -> int:
         "ms": k432["ms"], "plain_ms": k432["plain_ms"],
         "bound_ms": k432["bound_ms"], "bound_by": "bytes",
         "library_ms": k432["library_ms"],
+        "library_is": k432["library_is"],
         "per_width": {str(k): {kk: v[kk] for kk in (
-            "ms", "plain_ms", "bound_ms", "library_ms", "bytes")}
-            for k, v in shapes.items()}}
+            "ms", "wrapper_device_ms", "wrapper_call_ms",
+            "launches_per_call", "plain_ms", "bound_ms", "library_ms",
+            "bytes")} for k, v in shapes.items()}}
     f432 = fshapes[3 * cfg.ngroup * 3]
     fentry = {
         "name": "fused_kernel", "route": "cuda",
@@ -486,8 +516,9 @@ def main() -> int:
         "library_ms": f432["library_ms"],
         "library_is": f432["library_is"],
         "per_width": {f"CI={v['CI']}": {kk: v[kk] for kk in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bytes",
-            "flops")} for v in fshapes.values()}}
+            "ms", "wrapper_device_ms", "wrapper_call_ms",
+            "launches_per_call", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "bytes", "flops")} for v in fshapes.values()}}
     if "--profile" in sys.argv[1:]:
         profile_phase(codec, planes, t_enc, "window_kernel", 12 * nsteps)
         profile_phase(fcodec, planes, f_enc, "fused_kernel", 12 * nsteps)

@@ -47,8 +47,8 @@ import ctypes
 import torch
 
 from pseudocylindrical_convolution_torch.codec.window_kernel import (
-    NVCC_FLAGS, WindowTables, check_buffer, patch_values, source_rows,
-    step_table_bytes, step_table_ptrs, window_plain)
+    NVCC_FLAGS, WindowTables, check_buffer, source_rows, step_table_bytes,
+    step_table_ptrs, window_plain)
 from pseudocylindrical_convolution_torch.utils.build import (
     build_library, find_nvcc)
 
@@ -178,7 +178,7 @@ def _load():
         for name in ("pc_fused_bf16", "pc_fused_f32"):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [
+            fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [
                 ctypes.c_void_p]
         lib.pc_fused_info.restype = ctypes.c_int
         lib.pc_fused_info.argtypes = [ctypes.c_int] * 7 + [
@@ -228,7 +228,8 @@ def _check_kernel(buf: torch.Tensor, tabs: WindowTables,
 
 def fused_cuda(buf: torch.Tensor, z: int, tabs: WindowTables,
                k: torch.Tensor) -> torch.Tensor:
-    """The same cells from the CUDA kernel (launches once)."""
+    """The same cells from the CUDA kernel: one launch, nothing else on
+    the device."""
     global launches
     if buf.is_cuda and buf.device.index not in (
             None, torch.cuda.current_device()):
@@ -238,16 +239,13 @@ def fused_cuda(buf: torch.Tensor, z: int, tabs: WindowTables,
     CI, n = _check_kernel(buf, tabs, k)
     B, Sbuf, CC = buf.shape
     h, npart, T, G = tabs.h, tabs.npart, tabs.T, tabs.G
-    v6 = patch_values(buf, tabs)
     out = torch.empty((B, npart, h, 3 * G * n), dtype=torch.float32,
                       device=buf.device)
     lib = _load()
     fn = lib.pc_fused_bf16 if buf.dtype == torch.bfloat16 \
         else lib.pc_fused_f32
-    starts, j0, tpos, colz, wz = step_table_ptrs(tabs, z)
-    err = fn(buf.data_ptr(), starts, j0, tpos, v6.data_ptr(),
-             tabs.pstarts.data_ptr(), colz, wz, tabs.wl.data_ptr(),
-             k.data_ptr(), out.data_ptr(), B, npart, h, T, CC, CI, n, Sbuf,
+    err = fn(buf.data_ptr(), *step_table_ptrs(tabs, z), k.data_ptr(),
+             out.data_ptr(), B, npart, h, T, CC, CI, n, Sbuf,
              torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused kernel launch failed: cudaError {err}")
@@ -269,15 +267,13 @@ def fused(buf: torch.Tensor, z: int, tabs: WindowTables,
 def fused_bytes(buf: torch.Tensor, z: int, tabs: WindowTables,
                 k: torch.Tensor) -> int:
     """Bytes one fused call must move at step z: each distinct buffer row
-    it reads once, the patch values, the step's tables and K once, and the
-    fp32 cells once."""
+    it reads once, the step's tables and K once, and the fp32 cells
+    once."""
     B, _, CC = buf.shape
-    es = buf.element_size()
-    npart, h = tabs.npart, tabs.h
-    cells = B * npart * h * 3 * tabs.G * k.shape[2]
-    return (B * source_rows(z, tabs) * CC * es
-            + B * npart * h * 6 * CC * es + step_table_bytes(z, tabs)
-            + k.numel() * k.element_size() + cells * 4)
+    cells = B * tabs.npart * tabs.h * 3 * tabs.G * k.shape[2]
+    return (B * source_rows(z, tabs) * CC * buf.element_size()
+            + step_table_bytes(z, tabs) + k.numel() * k.element_size()
+            + cells * 4)
 
 
 def fused_flops(buf: torch.Tensor, tabs: WindowTables,

@@ -7,15 +7,19 @@ window (B, npart, h+4, T, CC), T = G+8, out of the layer buffer
   * ``window_plain``: the gather through the tables, in torch ops -- the
     CPU path and the kernel's reference;
   * ``window_cuda``: the same window from the CUDA kernel that replaces the
-    JAX package's Pallas kernel ``codec/pallas_window.py::_window_kernel``;
+    JAX package's Pallas kernel ``codec/pallas_window.py::_window_kernel``,
+    one launch per call;
   * ``window``: the wrapper the codec calls. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises.
+    version; a CUDA tensor launches the kernel or raises;
+  * ``window_from_tables``: the window built in torch from the kernel's own
+    tables, position by position as the kernel resolves them; the tests and
+    chip_smoke.py hold it to ``window_plain`` bit for bit.
 
-Both read the same static tables (``build_window_tables``), built once per
+All read the same static tables (``build_window_tables``), built once per
 codec geometry. The kernel's element code (csrc/window_common.cuh) and the
-wrapper's helpers here (``patch_values``, ``check_buffer``,
-``step_table_ptrs``, ``source_rows``) also serve the fused window+conv
-kernel (codec/fused_kernel.py).
+wrapper's helpers here (``check_buffer``, ``step_table_ptrs``,
+``source_rows``) also serve the fused window+conv kernel
+(codec/fused_kernel.py).
 
 Every window element is a copy, one weighted tap rounded once to the
 buffer dtype, or (on the 4 vertical-pad rows) the sum of two such taps
@@ -27,8 +31,9 @@ The kernel's decomposition (audited here at table-build time, as in the
 JAX package's ``_burst_setup`` and ``_mmpad_tables``):
   * interior row (band b, row r): window position t reads buffer row
     ``starts[b, r] + t`` while 0 <= j0[b, r] + t < wl[b], is +0.0 outside,
-    and takes one of <= 6 patch values ``v6`` (the causal-left zeros and
-    the circular wraps) at ``tpos[b, r, k]``;
+    and at ``tpos[b, r, k]`` takes one of <= 6 patch taps (the causal-left
+    zeros and the circular wraps): buffer row ``idx6[b, r, k]`` weighted by
+    ``wgt6[b, r, k]``;
   * vertical-pad row k, tap q: position t reads column ``colz[b,k,q,t]``
     of the single source row ``pstarts[b,k,q]``, weighted by ``wz``.
 """
@@ -55,9 +60,11 @@ launches = 0
 _lib = None
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(frozen=True)
 class WindowTables:
-    """Static window tables of one (geometry, h, w, G, dtype, device)."""
+    """Static window tables of one (geometry, h, w, G, dtype, device).
+    Frozen, so the table addresses cached in ``ptrs`` stay those of its
+    tensors."""
     G: int
     h: int
     w: int
@@ -77,8 +84,23 @@ class WindowTables:
     colz: torch.Tensor      # (nsteps, npart, 4, 2, T) int32
     wz: torch.Tensor        # (nsteps, npart, 4, 2, T) dtype
     pstarts: torch.Tensor   # (npart, 4, 2) int32
-    idx6: torch.Tensor      # (npart, h, 6) int64 patch source rows
+    idx6: torch.Tensor      # (npart, h, 6) int32 patch source rows
     wgt6: torch.Tensor      # (npart, h, 6) dtype patch weights
+    # (address, bytes per step; 0 for a static table) of each table the
+    # window and fused kernels read, in their argument order
+    ptrs: tuple = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        def per_step(t):
+            return t.data_ptr(), t.stride(0) * t.element_size()
+
+        def whole(t):
+            return t.data_ptr(), 0
+
+        object.__setattr__(self, "ptrs", (
+            per_step(self.starts), per_step(self.j0), per_step(self.tpos),
+            whole(self.idx6), whole(self.wgt6), whole(self.pstarts),
+            per_step(self.colz), per_step(self.wz), whole(self.wl)))
 
 
 def build_window_tables(geom: Geometry, h: int, w: int, G: int,
@@ -174,7 +196,7 @@ def build_window_tables(geom: Geometry, h: int, w: int, G: int,
         starts=dev(starts), j0=dev(j0), tpos=dev(tpos),
         colz=dev(colz), wz=dev(wz, torch.float32).to(dtype),
         pstarts=dev(M1 + Rrow * w),
-        idx6=dev(idx6, torch.int64), wgt6=dev(wgt6, torch.float32).to(dtype))
+        idx6=dev(idx6), wgt6=dev(wgt6, torch.float32).to(dtype))
 
 
 def _weighted(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
@@ -201,10 +223,33 @@ def window_plain(buf: torch.Tensor, z: int, tabs: WindowTables
     return win
 
 
-def patch_values(buf: torch.Tensor, tabs: WindowTables) -> torch.Tensor:
-    """The pre-weighted patch values v6 (B, npart, h, 6, CC) that the window
-    and fused kernels take for the interior rows' patch positions."""
-    return _weighted(buf[:, tabs.idx6], tabs.wgt6).contiguous()
+def window_from_tables(buf: torch.Tensor, z: int, tabs: WindowTables
+                       ) -> torch.Tensor:
+    """The window at step z from the kernels' tables, each position
+    resolved as csrc/window_common.cuh's ``window_slot`` resolves it: on an
+    interior row the run inside the valid width, +0.0 outside, and the
+    patch tap of the last k with tpos == t over either; on a pad row the
+    two taps of pstarts + colz weighted by wz, added in the buffer dtype.
+    For the tests and chip_smoke.py, which hold it to ``window_plain``."""
+    B, _, CC = buf.shape
+    npart, h, T = tabs.npart, tabs.h, tabs.T
+    t = torch.arange(T, device=buf.device)
+    win = torch.empty((B, npart, h + 4, T, CC), dtype=buf.dtype,
+                      device=buf.device)
+    jj = tabs.j0[z][..., None] + t                     # (np, h, T)
+    run = (jj >= 0) & (jj < tabs.wl[:, None, None])
+    inner = torch.where(run[..., None], buf[:, tabs.starts[z][..., None] + t],
+                        0)
+    v6 = _weighted(buf[:, tabs.idx6], tabs.wgt6)      # (B, np, h, 6, CC)
+    for k in range(6):
+        at = tabs.tpos[z][..., k, None] == t           # (np, h, T)
+        inner = torch.where(at[..., None], v6[:, :, :, k, None], inner)
+    win[:, :, 2:h + 2] = inner
+    src = tabs.pstarts[..., None] + tabs.colz[z]       # (np, 4, 2, T)
+    taps = [_weighted(buf[:, src[:, :, q]], tabs.wz[z][:, :, q])
+            for q in range(2)]
+    win[:, :, [0, 1, h + 2, h + 3]] = taps[0] + taps[1]
+    return win
 
 
 def check_buffer(buf: torch.Tensor, z: int, tabs: WindowTables,
@@ -229,12 +274,9 @@ def check_buffer(buf: torch.Tensor, z: int, tabs: WindowTables,
 
 
 def step_table_ptrs(tabs: WindowTables, z: int) -> list[int]:
-    """Device addresses of the step-z tables, in the kernels' argument
-    order (starts, j0, tpos; colz, wz), without making views."""
-    def step(t):
-        return t.data_ptr() + z * t.stride(0) * t.element_size()
-    return [step(t) for t in (tabs.starts, tabs.j0, tabs.tpos, tabs.colz,
-                              tabs.wz)]
+    """Device addresses of the tables a kernel reads at step z, in its
+    argument order (``WindowTables.ptrs``), without making views."""
+    return [p + z * step for p, step in tabs.ptrs]
 
 
 def _load():
@@ -247,7 +289,7 @@ def _load():
         for name in ("pc_window_bf16", "pc_window_f32"):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
                 ctypes.c_void_p]
         _lib = lib
     return _lib
@@ -255,7 +297,8 @@ def _load():
 
 def window_cuda(buf: torch.Tensor, z: int, tabs: WindowTables
                 ) -> torch.Tensor:
-    """The same window from the CUDA kernel (launches once)."""
+    """The same window from the CUDA kernel: one launch, nothing else on
+    the device."""
     global launches
     if buf.is_cuda and buf.device.index not in (
             None, torch.cuda.current_device()):
@@ -263,17 +306,13 @@ def window_cuda(buf: torch.Tensor, z: int, tabs: WindowTables
             return window_cuda(buf, z, tabs)
     check_buffer(buf, z, tabs, "window_cuda")
     B, Sbuf, CC = buf.shape
-    h, npart, T = tabs.h, tabs.npart, tabs.T
-    v6 = patch_values(buf, tabs)
-    out = torch.empty((B, npart, h + 4, T, CC), dtype=buf.dtype,
-                      device=buf.device)
+    out = torch.empty((B, tabs.npart, tabs.h + 4, tabs.T, CC),
+                      dtype=buf.dtype, device=buf.device)
     lib = _load()
     fn = lib.pc_window_bf16 if buf.dtype == torch.bfloat16 \
         else lib.pc_window_f32
-    starts, j0, tpos, colz, wz = step_table_ptrs(tabs, z)
-    err = fn(buf.data_ptr(), starts, j0, tpos, v6.data_ptr(),
-             tabs.pstarts.data_ptr(), colz, wz, tabs.wl.data_ptr(),
-             out.data_ptr(), B, npart, h, T, tabs.w, CC, Sbuf,
+    err = fn(buf.data_ptr(), *step_table_ptrs(tabs, z), out.data_ptr(), B,
+             tabs.npart, tabs.h, tabs.T, CC, Sbuf,
              torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"window kernel launch failed: cudaError {err}")
@@ -293,31 +332,33 @@ def window(buf: torch.Tensor, z: int, tabs: WindowTables) -> torch.Tensor:
 
 def source_rows(z: int, tabs: WindowTables) -> int:
     """Distinct buffer rows the window at step z reads: the interior runs
-    inside the valid widths and the live pad-tap columns."""
+    inside the valid widths, the live patch taps inside the window and the
+    live pad-tap columns."""
     t = torch.arange(tabs.T, device=tabs.j0.device)
     jj = tabs.j0[z][..., None] + t                     # (np, h, T)
     run = (jj >= 0) & (jj < tabs.wl[:, None, None])
     rows = [(tabs.starts[z][..., None] + t)[run]]
+    tp = tabs.tpos[z]                                  # (np, h, 6)
+    rows.append(tabs.idx6[(tp >= 0) & (tp < tabs.T) & (tabs.wgt6 != 0)])
     live = tabs.wz[z] != 0                             # (np, 4, 2, T)
-    prow = tabs.pstarts[..., None].long() + tabs.colz[z]
+    prow = tabs.pstarts[..., None] + tabs.colz[z]
     rows.append(prow[live])
     return int(torch.unique(torch.cat([x.long() for x in rows])).numel())
 
 
 def step_table_bytes(z: int, tabs: WindowTables) -> int:
     """Bytes of the tables one window or fused call reads at step z."""
-    return sum(x.numel() * x.element_size() for x in (
-        tabs.starts[z], tabs.j0[z], tabs.tpos[z], tabs.colz[z], tabs.wz[z],
-        tabs.pstarts, tabs.wl))
+    per_step = (tabs.starts, tabs.j0, tabs.tpos, tabs.colz, tabs.wz)
+    whole = (tabs.idx6, tabs.wgt6, tabs.pstarts, tabs.wl)
+    return (sum(t[z].nbytes for t in per_step)
+            + sum(t.nbytes for t in whole))
 
 
 def window_bytes(buf: torch.Tensor, z: int, tabs: WindowTables) -> int:
     """Bytes one window call must move at step z for this buffer: each
-    distinct buffer row it reads once, the patch values and the step's
-    tables once, and the output once."""
+    distinct buffer row it reads once (runs, patch taps, pad taps), the
+    step's tables once, and the output once."""
     B, _, CC = buf.shape
     es = buf.element_size()
-    npart, h, T = tabs.npart, tabs.h, tabs.T
-    return (B * source_rows(z, tabs) * CC * es
-            + B * npart * h * 6 * CC * es + step_table_bytes(z, tabs)
-            + B * npart * (h + 4) * T * CC * es)
+    return (B * source_rows(z, tabs) * CC * es + step_table_bytes(z, tabs)
+            + B * tabs.npart * (tabs.h + 4) * tabs.T * CC * es)

@@ -50,7 +50,7 @@
 //     its sources and weights (pcwin::Slot, in shared memory); (b) one
 //     flat loop over (slot, 16-byte vector) builds the elements: interior
 //     copies as cp.async, pad elements kStage at a time, their taps loaded
-//     raw before any is combined by pcwin::pad_sum.
+//     raw before any is combined by pcwin::combine.
 //  2. For each group in turn, the contraction loops over q outermost: each
 //     q's n K values are read once (from global memory, kUnroll trips
 //     ahead) and used for all kNB*h rows, accumulating acc[kNB][H][N] in
@@ -68,7 +68,6 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <cstring>
 
 #include "window_common.cuh"
 
@@ -76,6 +75,8 @@ namespace {
 
 using pcwin::Pack;
 using pcwin::Slot;
+using pcwin::from_raw;
+using pcwin::load_raw;
 using pcwin::to_f;
 
 constexpr int kThreads = 256;
@@ -119,36 +120,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// A VEC-wide pack as raw bits, loaded through the read-only path (the
-// kernel never writes the buffer), or zero where the source is null; it
-// stays raw in registers until every load of a stage is issued.
-template <int BYTES>
-struct RawOf;
-template <>
-struct RawOf<16> {
-  typedef uint4 type;
-};
-template <>
-struct RawOf<4> {
-  typedef unsigned type;
-};
-template <>
-struct RawOf<2> {
-  typedef unsigned short type;
-};
-
-template <typename R, typename T>
-__device__ __forceinline__ R load_raw(const T* src, int c) {
-  return src ? __ldg(reinterpret_cast<const R*>(src + c)) : R{};
-}
-
-template <typename P, typename R>
-__device__ __forceinline__ P from_raw(const R& r) {
-  P p;
-  memcpy(&p, &r, sizeof(P));
-  return p;
 }
 
 // The warp's butterfly (xor 16, 8, 4, 2, 1; each lane adds its partner's
@@ -206,13 +177,14 @@ template <typename T, int VEC, int H, int N, int CIC>
 __global__ void __launch_bounds__(kThreads, CIC > 0 ? kMinBlocks : 1)
     fused_kernel(const T* __restrict__ buf, const int* __restrict__ starts,
                  const int* __restrict__ j0, const int* __restrict__ tpos,
-                 const T* __restrict__ v6, const int* __restrict__ pstarts,
+                 const int* __restrict__ idx6, const T* __restrict__ wgt6,
+                 const int* __restrict__ pstarts,
                  const int* __restrict__ colz, const T* __restrict__ wz,
                  const int* __restrict__ wl, const T* __restrict__ k,
                  float* __restrict__ out, int B, int npart, int h, int Tw,
                  int CC, int CI, int n, int Sbuf) {
   typedef Pack<T, VEC> P;
-  typedef typename RawOf<sizeof(P)>::type R;
+  typedef typename pcwin::RawOf<sizeof(P)>::type R;
   constexpr bool kExact = CIC > 0;
   constexpr bool kAsync = sizeof(P) == 16;
   constexpr int kCells = kNB * H * N;
@@ -255,19 +227,10 @@ __global__ void __launch_bounds__(kThreads, CIC > 0 ? kMinBlocks : 1)
     const int rp = row - nb * hp4;
     const int t = tb + i - row * kPos;
     const int band = band0 + nb;
-    if (t < 0) {
-      slots[i] = Slot<T>{nullptr, nullptr, 0.f, 0.f, 0};
-    } else if (rp >= 2 && rp < h + 2) {
-      slots[i] = pcwin::interior_slot(
-          pcwin::interior_row(bufb, starts, j0, tpos, v6, wl, bi, npart, h,
-                              band, rp - 2, CC),
-          t, CC);
-    } else {
-      slots[i] = pcwin::pad_slot(
-          pcwin::pad_row(bufb, pstarts, colz, wz, band, rp < 2 ? rp : rp - h,
-                         Tw, CC),
-          t, CC);
-    }
+    slots[i] = t < 0 ? Slot<T>{nullptr, nullptr, 0.f, 0.f, pcwin::kCopy}
+                     : pcwin::window_slot(bufb, starts, j0, tpos, idx6, wgt6,
+                                          pstarts, colz, wz, wl, h, Tw, CC,
+                                          band, rp, t);
   }
   __syncthreads();
 
@@ -291,11 +254,13 @@ __global__ void __launch_bounds__(kThreads, CIC > 0 ? kMinBlocks : 1)
         const int c = (i - si * nvec) * VEC;
         const Slot<T> sl = slots[si];
         T* d = win + static_cast<size_t>(si) * CI + c;
-        if (!sl.pad && kAsync && sl.src0) {
+        if (sl.kind == pcwin::kCopy && kAsync && sl.src0) {
           cp_async16(d, sl.src0 + cs0 + c);
-        } else if (!sl.pad) {
-          *reinterpret_cast<P*>(d) =
-              pcwin::load_or_zero<T, VEC>(sl.src0, cs0 + c);
+        } else if (sl.kind != pcwin::kPad) {
+          // +0.0 or a patch tap, a few per row: built at once
+          *reinterpret_cast<P*>(d) = pcwin::combine<T, VEC>(
+              sl.kind, from_raw<P>(load_raw<R>(sl.src0, cs0 + c)), P{},
+              sl.w0, 0.f);
         } else {
           ra[u] = load_raw<R>(sl.src0, cs0 + c);
           rb[u] = load_raw<R>(sl.src1, cs0 + c);
@@ -308,8 +273,9 @@ __global__ void __launch_bounds__(kThreads, CIC > 0 ? kMinBlocks : 1)
 #pragma unroll
     for (int u = 0; u < kStage; ++u)
       if (dst[u])
-        *reinterpret_cast<P*>(dst[u]) = pcwin::pad_sum<T, VEC>(
-            from_raw<P>(ra[u]), from_raw<P>(rb[u]), w0[u], w1[u]);
+        *reinterpret_cast<P*>(dst[u]) = pcwin::combine<T, VEC>(
+            pcwin::kPad, from_raw<P>(ra[u]), from_raw<P>(rb[u]), w0[u],
+            w1[u]);
   }
   cp_async_wait_all();
   __syncthreads();
@@ -439,10 +405,10 @@ struct Plan {
     return 3 * ((Tw - 8 + kGroups - 1) / kGroups) * B * (npart / kNB);
   }
   int run(const void* buf, const void* starts, const void* j0,
-          const void* tpos, const void* v6, const void* pstarts,
-          const void* colz, const void* wz, const void* wl, const void* k,
-          void* out, int B, int npart, int h, int Tw, int CC, int CI, int n,
-          int Sbuf, cudaStream_t st) {
+          const void* tpos, const void* idx6, const void* wgt6,
+          const void* pstarts, const void* colz, const void* wz,
+          const void* wl, const void* k, void* out, int B, int npart, int h,
+          int Tw, int CC, int CI, int n, int Sbuf, cudaStream_t st) {
     auto kern = fused_kernel<T, VEC, H, N, CIC>;
     static size_t smem_set = 48 * 1024;
     if (smem > smem_set) {
@@ -455,9 +421,10 @@ struct Plan {
     kern<<<grid(B, npart, Tw), kThreads, smem, st>>>(
         static_cast<const T*>(buf), static_cast<const int*>(starts),
         static_cast<const int*>(j0), static_cast<const int*>(tpos),
-        static_cast<const T*>(v6), static_cast<const int*>(pstarts),
-        static_cast<const int*>(colz), static_cast<const T*>(wz),
-        static_cast<const int*>(wl), static_cast<const T*>(k),
+        static_cast<const int*>(idx6), static_cast<const T*>(wgt6),
+        static_cast<const int*>(pstarts), static_cast<const int*>(colz),
+        static_cast<const T*>(wz), static_cast<const int*>(wl),
+        static_cast<const T*>(k),
         static_cast<float*>(out), B, npart, h, Tw, CC, CI, n, Sbuf);
     return static_cast<int>(cudaGetLastError());
   }
@@ -513,18 +480,17 @@ int with_plan(bool aligned, int h, int CC, int CI, int n, F f) {
 
 template <typename T>
 int launch(const void* buf, const void* starts, const void* j0,
-           const void* tpos, const void* v6, const void* pstarts,
-           const void* colz, const void* wz, const void* wl, const void* k,
-           void* out, int B, int npart, int h, int Tw, int CC, int CI, int n,
-           int Sbuf, void* stream) {
+           const void* tpos, const void* idx6, const void* wgt6,
+           const void* pstarts, const void* colz, const void* wz,
+           const void* wl, const void* k, void* out, int B, int npart, int h,
+           int Tw, int CC, int CI, int n, int Sbuf, void* stream) {
   if (!valid_shape(npart, h, Tw, CC, CI, n) || B < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool aligned = reinterpret_cast<uintptr_t>(buf) % 16 == 0
-      && reinterpret_cast<uintptr_t>(v6) % 16 == 0;
+  const bool aligned = reinterpret_cast<uintptr_t>(buf) % 16 == 0;
   return with_plan<T>(aligned, h, CC, CI, n, [&](auto& p) {
-    return p.run(buf, starts, j0, tpos, v6, pstarts, colz, wz, wl, k, out, B,
-                 npart, h, Tw, CC, CI, n, Sbuf, st);
+    return p.run(buf, starts, j0, tpos, idx6, wgt6, pstarts, colz, wz, wl, k,
+                 out, B, npart, h, Tw, CC, CI, n, Sbuf, st);
   });
 }
 
@@ -542,22 +508,24 @@ extern "C" {
 
 // Returns the cudaError_t of the launch (0 = launched).
 int pc_fused_bf16(const void* buf, const void* starts, const void* j0,
-                  const void* tpos, const void* v6, const void* pstarts,
-                  const void* colz, const void* wz, const void* wl,
-                  const void* k, void* out, int B, int npart, int h, int Tw,
-                  int CC, int CI, int n, int Sbuf, void* stream) {
-  return launch<__nv_bfloat16>(buf, starts, j0, tpos, v6, pstarts, colz, wz,
-                               wl, k, out, B, npart, h, Tw, CC, CI, n, Sbuf,
-                               stream);
+                  const void* tpos, const void* idx6, const void* wgt6,
+                  const void* pstarts, const void* colz, const void* wz,
+                  const void* wl, const void* k, void* out, int B, int npart,
+                  int h, int Tw, int CC, int CI, int n, int Sbuf,
+                  void* stream) {
+  return launch<__nv_bfloat16>(buf, starts, j0, tpos, idx6, wgt6, pstarts,
+                               colz, wz, wl, k, out, B, npart, h, Tw, CC, CI,
+                               n, Sbuf, stream);
 }
 
 int pc_fused_f32(const void* buf, const void* starts, const void* j0,
-                 const void* tpos, const void* v6, const void* pstarts,
-                 const void* colz, const void* wz, const void* wl,
-                 const void* k, void* out, int B, int npart, int h, int Tw,
-                 int CC, int CI, int n, int Sbuf, void* stream) {
-  return launch<float>(buf, starts, j0, tpos, v6, pstarts, colz, wz, wl, k,
-                       out, B, npart, h, Tw, CC, CI, n, Sbuf, stream);
+                 const void* tpos, const void* idx6, const void* wgt6,
+                 const void* pstarts, const void* colz, const void* wz,
+                 const void* wl, const void* k, void* out, int B, int npart,
+                 int h, int Tw, int CC, int CI, int n, int Sbuf,
+                 void* stream) {
+  return launch<float>(buf, starts, j0, tpos, idx6, wgt6, pstarts, colz, wz,
+                       wl, k, out, B, npart, h, Tw, CC, CI, n, Sbuf, stream);
 }
 
 // What a launch at this shape (B=1, 16-byte aligned operands) runs:

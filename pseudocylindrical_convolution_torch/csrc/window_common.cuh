@@ -9,21 +9,22 @@
 //
 //   interior row (band b, row r = rp - 2): position t copies buffer row
 //     starts[b,r] + t while 0 <= j0[b,r] + t < wl[b], is +0.0 outside, and
-//     takes the pre-weighted patch value v6[bi,b,r,k] where t == tpos[b,r,k]
-//     (the causal-left zeros and the circular wraps, <= 6 per row);
+//     takes patch k where t == tpos[b,r,k] (the causal-left zeros and the
+//     circular wraps, <= 6 per row): one tap of buffer row idx6[b,r,k]
+//     weighted by wgt6[b,r,k];
 //   vertical-pad row k (rp in {0, 1, h+2, h+3}): each tap q reads column
-//     colz[b,k,q,t] of the single source row pstarts[b,k,q], times wz; a tap
-//     is rounded once to the buffer type (+0.0 when its weight is 0), and
-//     the two taps are added and rounded once more.
-// __fmul_rn and __fadd_rn keep the compiler from contracting a tap and the
-// sum into one FMA, which would round differently.
+//     colz[b,k,q,t] of the single source row pstarts[b,k,q], times wz; the
+//     two taps are added and rounded once more.
+// A tap is the product rounded once to the buffer type, +0.0 where its
+// weight is 0. A patch element is its one tap as it is: adding a +0.0
+// second tap would turn a -0.0 product into +0.0. __fmul_rn and __fadd_rn
+// keep the compiler from contracting a tap and the sum into one FMA, which
+// would round differently.
 //
-// The window kernel reads a row's tables once and builds its elements
-// (interior_pack, pad_pack). The fused kernel first resolves each (row, t)
-// of its sub-window into a Slot in shared memory (interior_slot,
-// pad_slot), then builds the elements from the slots; both go through the
-// same source selection (interior_src, pad_slot) and the same pad
-// arithmetic (pad_sum).
+// Each kernel first resolves every (row, t) it builds into a Slot (its
+// sources, weights and kind: interior_slot, pad_slot), then loads the raw
+// 16-byte vectors of all its slots' sources (load_raw) before it combines
+// any of them (combine), so that a thread's loads are in flight together.
 
 #pragma once
 
@@ -31,6 +32,8 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+#include <cstring>
 
 namespace pcwin {
 
@@ -55,84 +58,134 @@ struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
 };
 
+// A VEC-wide pack as raw bits, loaded through the read-only path (neither
+// kernel writes the buffer), or zero bits (+0.0) where the source is null.
+template <int BYTES>
+struct RawOf;
+template <>
+struct RawOf<16> {
+  typedef uint4 type;
+};
+template <>
+struct RawOf<4> {
+  typedef unsigned type;
+};
+template <>
+struct RawOf<2> {
+  typedef unsigned short type;
+};
+
+template <typename R, typename T>
+__device__ __forceinline__ R load_raw(const T* src, int c) {
+  return src ? __ldg(reinterpret_cast<const R*>(src + c)) : R{};
+}
+
+template <typename P, typename R>
+__device__ __forceinline__ P from_raw(const R& r) {
+  P p;
+  memcpy(&p, &r, sizeof(P));
+  return p;
+}
+
 // One tap: the product rounded once to T, or +0.0 where the weight is 0.
 template <typename T>
 __device__ __forceinline__ float tap(T x, float wt) {
   return wt == 0.f ? 0.f : to_f(from_f<T>(__fmul_rn(to_f(x), wt)));
 }
 
-template <typename T, int VEC>
-__device__ __forceinline__ Pack<T, VEC> zero_pack() {
-  Pack<T, VEC> p;
-#pragma unroll
-  for (int e = 0; e < VEC; ++e) p.v[e] = from_f<T>(0.f);
-  return p;
-}
+// What a window position is made of.
+enum Kind : int {
+  kCopy = 0,  // src0 as it is; +0.0 where src0 is null
+  kTap = 1,   // one tap of src0 with weight w0 (an interior patch)
+  kPad = 2,   // the taps of src0 and src1 (null where the weight is 0),
+              // added and rounded once more
+};
 
-// VEC channels [c, c+VEC) of a source position, or +0.0 where it has none.
-template <typename T, int VEC>
-__device__ __forceinline__ Pack<T, VEC> load_or_zero(const T* src, int c) {
-  return src ? *reinterpret_cast<const Pack<T, VEC>*>(src + c)
-             : zero_pack<T, VEC>();
-}
+// One position t of a window row, resolved from the tables.
+template <typename T>
+struct Slot {
+  const T* src0;
+  const T* src1;
+  float w0, w1;
+  int kind;
+};
 
-// A pad element: the two taps, each rounded once, added and rounded once
-// more.
+// The element of a slot from the raw packs of its sources (b is read only
+// for kPad).
 template <typename T, int VEC>
-__device__ __forceinline__ Pack<T, VEC> pad_sum(const Pack<T, VEC>& a,
+__device__ __forceinline__ Pack<T, VEC> combine(int kind,
+                                                const Pack<T, VEC>& a,
                                                 const Pack<T, VEC>& b,
                                                 float w0, float w1) {
+  if (kind == kCopy) return a;
   Pack<T, VEC> o;
+  if (kind == kTap) {
 #pragma unroll
-  for (int e = 0; e < VEC; ++e)
-    o.v[e] = from_f<T>(__fadd_rn(tap(a.v[e], w0), tap(b.v[e], w1)));
+    for (int e = 0; e < VEC; ++e) o.v[e] = from_f<T>(tap(a.v[e], w0));
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      o.v[e] = from_f<T>(__fadd_rn(tap(a.v[e], w0), tap(b.v[e], w1)));
+  }
   return o;
 }
 
-// The tables of one interior window row (band, r) at this step.
+// The tables of one interior window row (band, r) at this step, the patch
+// sources and weights read at once with the patch positions.
 template <typename T>
 struct InteriorRow {
   const T* run;     // buffer row starts[b,r]: position t reads run + t*CC
-  const T* v6row;   // the row's 6 patch values, each CC wide
   int tlo, thi;     // t in [tlo, thi) lies inside the valid width
   int tp[6];        // patch positions (-1: no patch)
+  int src[6];       // patch source rows (idx6)
+  float w[6];       // patch weights (wgt6)
 };
 
 template <typename T>
 __device__ __forceinline__ InteriorRow<T> interior_row(
     const T* bufb, const int* starts, const int* j0, const int* tpos,
-    const T* v6, const int* wl, int bi, int npart, int h, int band, int r,
+    const int* idx6, const T* wgt6, const int* wl, int h, int band, int r,
     int CC) {
   InteriorRow<T> row;
   const int cell = band * h + r;
   row.run = bufb + static_cast<size_t>(starts[cell]) * CC;
-  row.v6row = v6 + (static_cast<size_t>(bi) * npart * h + cell) * 6 * CC;
   row.tlo = -j0[cell];             // t >= tlo  <=>  j >= 0
   row.thi = wl[band] - j0[cell];   // t <  thi  <=>  j <  wl
 #pragma unroll
-  for (int q = 0; q < 6; ++q) row.tp[q] = tpos[cell * 6 + q];
+  for (int q = 0; q < 6; ++q) {
+    row.tp[q] = tpos[cell * 6 + q];
+    row.src[q] = idx6[cell * 6 + q];
+    row.w[q] = to_f(wgt6[cell * 6 + q]);
+  }
   return row;
 }
 
-// The source of interior position t: its patch value, the run, or null
-// (+0.0 outside the valid width).
+// Interior position t: its patch tap, the run, or +0.0 outside the valid
+// width (a patch of weight 0 is +0.0 too).
 template <typename T>
-__device__ __forceinline__ const T* interior_src(const InteriorRow<T>& row,
+__device__ __forceinline__ Slot<T> interior_slot(const T* bufb,
+                                                 const InteriorRow<T>& row,
                                                  int t, int CC) {
   int k = -1;
 #pragma unroll
   for (int q = 0; q < 6; ++q) k = (row.tp[q] == t) ? q : k;
-  if (k >= 0) return row.v6row + static_cast<size_t>(k) * CC;
+  if (k >= 0) {
+    int src = 0;
+    float w = 0.f;
+#pragma unroll
+    for (int q = 0; q < 6; ++q) {
+      src = q == k ? row.src[q] : src;
+      w = q == k ? row.w[q] : w;
+    }
+    if (w != 0.f)
+      return Slot<T>{bufb + static_cast<size_t>(src) * CC, nullptr, w, 0.f,
+                     kTap};
+    return Slot<T>{nullptr, nullptr, 0.f, 0.f, kCopy};
+  }
   if (t >= row.tlo && t < row.thi)
-    return row.run + static_cast<size_t>(t) * CC;
-  return nullptr;
-}
-
-// VEC channels [c, c+VEC) of interior position t: patch, run or +0.0.
-template <typename T, int VEC>
-__device__ __forceinline__ Pack<T, VEC> interior_pack(
-    const InteriorRow<T>& row, int t, int c, int CC) {
-  return load_or_zero<T, VEC>(interior_src(row, t, CC), c);
+    return Slot<T>{row.run + static_cast<size_t>(t) * CC, nullptr, 0.f, 0.f,
+                   kCopy};
+  return Slot<T>{nullptr, nullptr, 0.f, 0.f, kCopy};
 }
 
 // The tables of one vertical-pad window row (band, pad row k) at this step.
@@ -163,23 +216,6 @@ __device__ __forceinline__ PadRow<T> pad_row(const T* bufb,
   return row;
 }
 
-// One position t of a window row, resolved from the tables: an interior
-// element copies src0 (null: +0.0); a pad element is pad_sum of the taps
-// at src0 and src1 (null where the weight is 0) with weights w0, w1.
-template <typename T>
-struct Slot {
-  const T* src0;
-  const T* src1;
-  float w0, w1;
-  int pad;
-};
-
-template <typename T>
-__device__ __forceinline__ Slot<T> interior_slot(const InteriorRow<T>& row,
-                                                 int t, int CC) {
-  return Slot<T>{interior_src(row, t, CC), nullptr, 0.f, 0.f, 0};
-}
-
 template <typename T>
 __device__ __forceinline__ Slot<T> pad_slot(const PadRow<T>& row, int t,
                                             int CC) {
@@ -188,17 +224,25 @@ __device__ __forceinline__ Slot<T> pad_slot(const PadRow<T>& row, int t,
   return Slot<T>{
       w0 != 0.f ? row.src0 + static_cast<size_t>(row.cz0[t]) * CC : nullptr,
       w1 != 0.f ? row.src1 + static_cast<size_t>(row.cz1[t]) * CC : nullptr,
-      w0, w1, 1};
+      w0, w1, kPad};
 }
 
-// VEC channels [c, c+VEC) of pad position t: the two taps, each rounded
-// once, added and rounded once more.
-template <typename T, int VEC>
-__device__ __forceinline__ Pack<T, VEC> pad_pack(const PadRow<T>& row,
-                                                 int t, int c, int CC) {
-  const Slot<T> s = pad_slot(row, t, CC);
-  return pad_sum<T, VEC>(load_or_zero<T, VEC>(s.src0, c),
-                         load_or_zero<T, VEC>(s.src1, c), s.w0, s.w1);
+// Window row rp (0 <= rp < h+4) of band `band`, position t, resolved.
+template <typename T>
+__device__ __forceinline__ Slot<T> window_slot(
+    const T* bufb, const int* starts, const int* j0, const int* tpos,
+    const int* idx6, const T* wgt6, const int* pstarts, const int* colz,
+    const T* wz, const int* wl, int h, int Tw, int CC, int band, int rp,
+    int t) {
+  if (rp >= 2 && rp < h + 2)
+    return interior_slot(
+        bufb,
+        interior_row(bufb, starts, j0, tpos, idx6, wgt6, wl, h, band, rp - 2,
+                     CC),
+        t, CC);
+  return pad_slot(
+      pad_row(bufb, pstarts, colz, wz, band, rp < 2 ? rp : rp - h, Tw, CC),
+      t, CC);
 }
 
 }  // namespace pcwin

@@ -33,22 +33,75 @@ def cuda():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("npart,h,w,G", [(4, 2, 16, 2), (16, 4, 128, 48)])
 def test_cuda_kernel_matches_plain(cuda, dtype, npart, h, w, G):
-    """Bit-equal to the plain version at every step, for both widths."""
+    """Bit-equal to the plain version at every step (all 238 at the
+    flagship shape), for both widths (the tiny shape's CC = 18 and 2 take
+    the kernel's one-element path), on random buffers of B=2 images and on
+    buffers holding -0.0 at every patch source row."""
     geom = Geometry(npart=npart)
     _, _, nsteps = wavefront_schedule(geom, h, w, G)
     tabs = wk.build_window_tables(geom, h, w, G, nsteps, dtype, cuda)
     gen = torch.Generator(device=cuda).manual_seed(7)
     bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
     for CC in (9 * G, G):
-        buf = torch.randn((1, tabs.Sbuf, CC), generator=gen,
+        buf = torch.randn((2, tabs.Sbuf, CC), generator=gen,
                           device=cuda).to(dtype)
-        bad = 0
-        for z in range(nsteps):
-            got = wk.window_cuda(buf, z, tabs)
-            want = wk.window_plain(buf, z, tabs)
-            bad += int((got.view(bits) != want.view(bits)).sum())
+        negzero = buf.clone()
+        negzero[:, tabs.idx6[tabs.wgt6 != 0].long()] = -0.0
+        for b in (buf, negzero):
+            bad = 0
+            for z in range(nsteps):
+                got = wk.window_cuda(b, z, tabs)
+                want = wk.window_plain(b, z, tabs)
+                bad += int((got.view(bits) != want.view(bits)).sum())
+            torch.cuda.synchronize()
+            assert bad == 0, (CC, bad)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_unaligned_buffer(cuda):
+    """A buffer that is not 16-byte aligned takes the one-element path,
+    with the same bits, at the flagship shape."""
+    geom = Geometry(npart=16)
+    h, w, G = 4, 128, 48
+    _, _, nsteps = wavefront_schedule(geom, h, w, G)
+    tabs = wk.build_window_tables(geom, h, w, G, nsteps, torch.bfloat16,
+                                  cuda)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    CC = 9 * G
+    flat = torch.randn(tabs.Sbuf * CC + 1, generator=gen,
+                       device=cuda).to(torch.bfloat16)
+    buf = flat[1:].view(1, tabs.Sbuf, CC)
+    assert buf.data_ptr() % 16
+    for z in (0, nsteps // 2, nsteps - 1):
+        got = wk.window_cuda(buf, z, tabs)
+        want = wk.window_plain(buf, z, tabs)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16)), z
+
+
+@pytest.mark.gpu
+def test_window_and_fused_calls_are_one_launch(cuda):
+    """A window_cuda or fused_cuda call runs one device kernel and nothing
+    else: no patch values or other torch kernels beside it."""
+    from torch.profiler import ProfilerActivity, profile
+    tabs, nsteps, ops = _fused_operands(cuda, torch.bfloat16, 16, 4, 128,
+                                        48, 15)
+    for buf, k in ops:
+        wk.window_cuda(buf, 1, tabs)
+        fk.fused_cuda(buf, 1, tabs, k)
         torch.cuda.synchronize()
-        assert bad == 0, (CC, bad)
+        for call, name in ((lambda: wk.window_cuda(buf, 1, tabs),
+                            "window_kernel"),
+                           (lambda: fk.fused_cuda(buf, 1, tabs, k),
+                            "fused_kernel")):
+            for _ in range(3):      # the tracer drops an event now and then
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    call()
+                    torch.cuda.synchronize()
+                ran = [e.key for e in prof.key_averages()
+                       if e.self_device_time_total > 0]
+                if ran:
+                    break
+            assert len(ran) == 1 and name in ran[0], ran
 
 
 def _fused_operands(cuda, dtype, npart, h, w, G, seed):
