@@ -41,7 +41,24 @@ seconds:
      picks the profile from the header; equal symbol planes, flags2 =
      FLAG2_TORCH | FLAG2_TORCH_FUSED, exactly 2 x 12 x nsteps fused
      launches and no window launch, and the same reconstruction; the
-     stream's bytes and sha256.
+     stream's bytes and sha256;
+  7. dense_codec: the same image through the dense mode,
+     pipeline.encode_images / decode_image (no kernel of ours: the
+     network is gathers and fp32 matmuls); the decoded symbol planes
+     must equal the encoded ones and the scan encode's, the header must
+     say MODE_DENSE with FLAG2_TORCH, neither kernel may launch, and the
+     reconstruction must equal the window profile's; encode and decode
+     seconds, bytes, sha256, bpp, and how many of the encoder's CDF rows
+     would differ had it built them all at once instead of in each
+     step's maxlen window as the decoder does (information: both sides
+     build them per step);
+  8. incr_codec: the same for the incremental mode,
+     incremental.incr_encode_images / incr_decode_images and MODE_INCR;
+  9. cli_test: the smooth image as an 8-bit .npy through cli.main at
+     --model-idx 9: --enc in the scan, dense and incremental modes,
+     --test of the dense stream (its bpp, viewport PSNR and SSIM, and
+     WS-PSNR), and --dec of each stream; the three decoded .npy files
+     must be equal (one encoder made the latents).
 
 With --profile, one more encode of the same plane per profile runs under
 torch.profiler and a "profile" line gives its kernels by device time.
@@ -97,7 +114,7 @@ def cuda_ms(fn, iters: int = 50) -> float:
 
 
 def device_profile(fn, iters: int = 50, only: str | None = None,
-                   tries: int = 3) -> tuple[float, float]:
+                   tries: int = 8) -> tuple[float, float]:
     """Device time and kernel launches per call: the summed time and the
     count of the CUDA kernels one call runs (those whose name holds
     ``only``, if given), from torch.profiler's CUPTI trace. Every kernel a
@@ -122,7 +139,9 @@ def device_profile(fn, iters: int = 50, only: str | None = None,
             return (sum(e.self_device_time_total for e in ev) / 1e3 / iters,
                     sum(e.count for e in ev) / iters)
     raise AssertionError(f"the profiler recorded no complete trace in "
-                         f"{tries} tries")
+                         f"{tries} tries; the last counted "
+                         f"{[(e.key[:60], e.count) for e in ev]} over "
+                         f"{iters} calls")
 
 
 def device_ms(fn, iters: int = 50, only: str | None = None) -> float:
@@ -326,6 +345,134 @@ def profile_phase(codec, planes, wall_s: float, kernel: str,
          top=[{"kernel": k[:90], "ms": t, "calls": c} for k, t, c in top])
 
 
+def mode_phase(phase, encode, decode, mode, model, geom, x, ref, wk, fk,
+               container, extra=None) -> None:
+    """One image through a mode's encode and decode entry points, with
+    neither kernel launched; the symbols and the reconstruction must be
+    the scan codec's (``ref`` = its symbol planes, validity mask and
+    reconstruction)."""
+    import numpy as np
+    import torch
+    t_phase = time.time()
+    planes, valid, rec = ref
+    H, W = x.shape[2:]
+    with tempfile.TemporaryDirectory() as tmp:
+        fn = os.path.join(tmp, "img.bin")
+        wk.launches = fk.launches = 0
+        t0 = time.time()
+        (size,), eplanes = encode(model, [x], geom, [fn], device="cuda",
+                                  return_planes=True)
+        torch.cuda.synchronize()
+        t_enc = time.time() - t0
+        t0 = time.time()
+        drec, dplanes = decode(model, geom, [fn], (H, W), device="cuda",
+                               return_planes=True)
+        torch.cuda.synchronize()
+        t_dec = time.time() - t0
+        stray = wk.launches + fk.launches
+        hdr = container.read_stream(fn)
+        digest = sha256_of(fn)
+    nbad = int(((dplanes != eplanes) & valid[None]).sum())
+    if nbad:
+        raise AssertionError(f"{phase}: decoded symbol plane differs in "
+                             f"{nbad} symbols")
+    if not np.array_equal(eplanes, planes):
+        raise AssertionError(f"{phase}: the encoder's latents differ from "
+                             f"the scan encode's")
+    if (hdr["mode"], hdr["flags2"]) != (mode, container.FLAG2_TORCH):
+        raise AssertionError(f"{phase}: header mode {hdr['mode']}, flags2 "
+                             f"{hdr['flags2']}")
+    if stray:
+        raise AssertionError(f"{phase}: {stray} window or fused kernel "
+                             f"launches, expected 0")
+    drec = drec.float().cpu().numpy()
+    if drec.shape != x.shape or not np.isfinite(drec).all():
+        raise AssertionError(f"{phase}: bad reconstruction {drec.shape}")
+    if not np.array_equal(drec, rec):
+        raise AssertionError(f"{phase}: the reconstruction differs from the "
+                             f"scan codec's on the same latents")
+    emit(phase, t_phase, encode_s=round(t_enc, 3),
+         decode_s=round(t_dec, 3), bytes=size, sha256=digest,
+         bpp=size * 8 / (H * W), symbol_mismatches=nbad,
+         kernel_launches=stray, **(extra or {}))
+
+
+def dense_phase(model, geom, x, ref, wk, fk, container) -> None:
+    """Phase 7; also counts the CDF rows that a one-shot table would
+    change against the per-step windows both sides build."""
+    import torch
+    from pseudocylindrical_convolution_torch.codec import pipeline as pl
+    from pseudocylindrical_convolution_torch.models.entropy import (
+        fused_weights)
+    from pseudocylindrical_convolution_torch.ops.gmm_table import (
+        gmm_cdf_table)
+    planes = ref[0]
+    sched = pl._Schedule(geom, *planes.shape[3:], model.cfg.ngroup, "cuda")
+    layers = fused_weights(model.ent, model.cfg.ngroup)
+    biased = torch.as_tensor(planes, device="cuda").float() - pl.BIAS
+    step_rows = pl._table_body(layers, biased, geom, sched)[0]
+    raw = pl._raw_rows(layers, biased[0], geom)[
+        :, sched.flat_pad[:sched.flat.shape[0]]]
+    full = gmm_cdf_table(raw[0], raw[1], raw[2], pl.NSTEP, pl.BIAS, pl.TOTAL)
+    differ = int((full != step_rows).any(dim=1).sum())
+    mode_phase("dense_codec", pl.encode_images, pl.decode_image,
+               container.MODE_DENSE, model, geom, x, ref, wk, fk, container,
+               {"nsteps": sched.nsteps, "maxlen": sched.maxlen,
+                "full_table_rows_differing": differ,
+                "rows": int(step_rows.shape[0])})
+
+
+def incr_phase(model, geom, x, ref, wk, fk, container) -> None:
+    """Phase 8."""
+    from pseudocylindrical_convolution_torch.codec import incremental
+    mode_phase("incr_codec", incremental.incr_encode_images,
+               incremental.incr_decode_images, container.MODE_INCR, model,
+               geom, x, ref, wk, fk, container)
+
+
+def cli_phase(x) -> None:
+    """Phase 9: the CLI on .npy files through the registry."""
+    import contextlib
+    import io
+    import numpy as np
+    from pseudocylindrical_convolution_torch import cli
+    t_phase = time.time()
+    img = np.round(x[0].transpose(1, 2, 0) * 255.0).astype(np.uint8)
+    log = io.StringIO()
+    secs = {}
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(
+            log):
+        src = os.path.join(tmp, "img.npy")
+        np.save(src, img)
+        outs = []
+        for mode in ("scan", "dense", "incremental"):
+            code = os.path.join(tmp, f"{mode}.bin")
+            out = os.path.join(tmp, f"{mode}.npy")
+            t0 = time.time()
+            cli.main(["--enc", "--img-list", src, "--code-list", code,
+                      "--mode", mode, "--model-idx", "9"])
+            secs[f"{mode}_enc_s"] = round(time.time() - t0, 3)
+            if mode == "dense":
+                t0 = time.time()
+                metrics = cli.main(["--test", "--code-list", code,
+                                    "--img-list", src, "--model-idx", "9"])
+                secs["dense_test_s"] = round(time.time() - t0, 3)
+            t0 = time.time()
+            cli.main(["--dec", "--code-list", code, "--out-list", out,
+                      "--model-idx", "9"])
+            secs[f"{mode}_dec_s"] = round(time.time() - t0, 3)
+            outs.append(np.load(out))
+    for mode, out in zip(("dense", "incremental"), outs[1:]):
+        if not np.array_equal(out, outs[0]):
+            raise AssertionError(f"cli_test: the {mode} stream decodes to "
+                                 f"another image than the scan stream")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"cli_test: --test gave {metrics}")
+    emit("cli_test", t_phase, test=metrics, outputs_equal=True, **secs,
+         test_lines=[ln.strip() for ln in log.getvalue().splitlines()
+                     if "Bitrate:" in ln])
+
+
 def sha256_of(path: str) -> str:
     with open(path, "rb") as f:
         return hashlib.sha256(f.read()).hexdigest()
@@ -486,6 +633,11 @@ def main() -> int:
          bpp=fsize * 8 / (H * W), psnr_db=psnr, flags2=flags2,
          symbol_mismatches=fbad, fused_launches=flaunches,
          window_launches=stray)
+
+    rec_planes = (planes, valid, rec)
+    dense_phase(model, geom, x, rec_planes, wk, fk, container)
+    incr_phase(model, geom, x, rec_planes, wk, fk, container)
+    cli_phase(x)
 
     k432 = shapes[3 * cfg.ngroup * 3]
     entry = {

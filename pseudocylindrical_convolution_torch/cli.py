@@ -1,21 +1,26 @@
-"""Codec CLI, scan mode (the reference's public surface,
-pseudo_codec.py:310-356, as the JAX package's ``cli.py`` has it).
+"""Codec CLI (the reference's public surface, pseudo_codec.py:310-356, as
+the JAX package's ``cli.py`` has it).
 
   python -m pseudocylindrical_convolution_torch.cli --enc \
-      --img-list a.png --code-list a.bin --model-idx 9
+      --img-list a.png --code-list a.bin --model-idx 9 [--mode dense]
   python -m pseudocylindrical_convolution_torch.cli --dec \
       --code-list a.bin --out-list a_dec.png --model-idx 9
+  python -m pseudocylindrical_convolution_torch.cli --test \
+      --code-list a.bin --img-list a.png --model-idx 9
 
-Images are 8-bit BGR files read with OpenCV (as the reference does), or
-``.npy`` arrays of shape (H, W, 3); PNG needs ``cv2`` installed. Streams
-are the port's own scan-mode containers; ``--test``, the dense and the
-incremental modes are not ported yet. Runs on the card unless
-``--device cpu`` is given.
+``--img-file``/``--code-file``/``--out-file`` name list files, one path
+per line, in place of the lists. Images are 8-bit BGR files read with
+OpenCV (as the reference does), or ``.npy`` arrays of shape (H, W, 3);
+PNG needs ``cv2`` installed. ``--mode`` picks the encoder: scan (the
+default), dense or incremental; ``--dec`` and ``--test`` take the mode
+and the image size from each stream's header. Streams are the port's
+own containers. Runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
 
 import numpy as np
@@ -31,6 +36,10 @@ SSIM_MODEL_DIR = "./demo/ssim"
 IMAGE_HW = (512, 1024)
 
 
+def psnr_f(mse: float) -> float:
+    return 10 * math.log10(1.0 / mse)
+
+
 def model_spec(model_idx: int, mse: bool):
     """(checkpoint path, valid_dim) of a registry entry."""
     prefix = (MODEL_MSE_LIST if mse else MODEL_SSIM_LIST)[model_idx]
@@ -44,8 +53,10 @@ def bits_per_pixel(nbytes: int, hw=IMAGE_HW) -> float:
     return nbytes * 8 / float(hw[0] * hw[1])
 
 
-def read_image(path: str, hw=IMAGE_HW) -> np.ndarray:
-    """(1, 3, H, W) float32 in [0, 1], BGR like the reference."""
+def read_image(path: str, hw=None) -> np.ndarray:
+    """(1, 3, H, W) float32 in [0, 1], BGR like the reference; resized to
+    ``hw`` (default IMAGE_HW) if it is not that size."""
+    hw = IMAGE_HW if hw is None else hw
     if path.endswith(".npy"):
         img = np.load(path)
     else:
@@ -72,6 +83,7 @@ def write_image(path: str, rec) -> None:
 
 
 def _setup(model_idx: int, mse: bool, device: str):
+    """The registry entry's model, loaded onto ``device``."""
     from pseudocylindrical_convolution_torch.models.cmpnet import (
         CMPNetConfig)
     from pseudocylindrical_convolution_torch.utils.checkpoint import (
@@ -79,72 +91,120 @@ def _setup(model_idx: int, mse: bool, device: str):
     path, vd = model_spec(model_idx, mse)
     if not os.path.exists(path):
         raise SystemExit(f"--model-idx {model_idx}: no checkpoint {path}")
-    cfg = CMPNetConfig(valid_dim=vd)
-    return cfg, cfg.geometry(), load_model(path, cfg, device)
+    return load_model(path, CMPNetConfig(valid_dim=vd), device)
+
+
+def read_list(fname: str) -> list:
+    with open(fname) as f:
+        return [ln.rstrip("\n") for ln in f.readlines()]
 
 
 def encoding(img_list, code_list, model_idx=0, mse=True, device="cuda",
-             batch=1, lanes=None):
-    from pseudocylindrical_convolution_torch.codec.wavefront_scan import (
-        scan_encode_images)
-    cfg, geom, model = _setup(model_idx, mse, device)
+             mode="scan", batch=1, lanes=None):
+    from pseudocylindrical_convolution_torch.codec.api import encode_any
+    model = _setup(model_idx, mse, device)
     images = [read_image(fn) for fn in img_list]
-    sizes = scan_encode_images(model, images, geom, code_list, batch=batch,
-                               lanes=lanes, device=device)
+    sizes = encode_any(model, images, code_list, mode, batch, lanes, device)
     for fn, size in zip(img_list, sizes):
         print(f"Encoding {fn}, bitrate: {bits_per_pixel(size):.3f}bpp")
 
 
 def decoding(code_list, out_list, model_idx=0, mse=True, device="cuda"):
-    from pseudocylindrical_convolution_torch.codec import container
-    from pseudocylindrical_convolution_torch.codec.wavefront_scan import (
-        scan_decode_images)
-    cfg, geom, model = _setup(model_idx, mse, device)
-    hdrs = [container.read_stream(fc) for fc in code_list]
-    sizes = {(int(h["h"]) * geom.npart * 8, int(h["w"]) * 8) for h in hdrs}
-    if len(sizes) != 1:
-        raise SystemExit(f"mixed stream sizes in one decode run: {sizes}")
-    recs = scan_decode_images(model, geom, list(code_list), sizes.pop(),
-                              device=device).cpu().numpy()
+    from pseudocylindrical_convolution_torch.codec.api import decode_any
+    model = _setup(model_idx, mse, device)
+    recs = decode_any(model, list(code_list), device).cpu().numpy()
     for rec, fc, fo in zip(recs, code_list, out_list):
         write_image(fo, rec)
         print(f"Decoding {fc}, output to {fo}")
 
 
+def decoding_and_test(code_list, img_list, model_idx=0, mse=True,
+                      device="cuda") -> dict:
+    """Decode, then print each stream's bpp, viewport PSNR and SSIM (14
+    viewports of 171x256, fov 0.5) and WS-PSNR against its source image,
+    and their averages; returns the averages."""
+    import torch
+    from pseudocylindrical_convolution_torch.codec.api import decode_any
+    from pseudocylindrical_convolution_torch.ops.projects import (
+        multi_project)
+    from pseudocylindrical_convolution_torch.ops.ssim import ssim
+    from pseudocylindrical_convolution_torch.ops.wspsnr import ws_psnr
+    model = _setup(model_idx, mse, device)
+    recs = decode_any(model, list(code_list), device)
+    rows = []
+    for b, (fc, fn) in enumerate(zip(code_list, img_list)):
+        rec = recs[b:b + 1]
+        x = torch.as_tensor(read_image(fn), device=rec.device)
+        px = multi_project(x, 171, 256, 0.5)
+        py = multi_project(rec, 171, 256, 0.5)
+        pr = psnr_f(float(torch.mean((px - py) ** 2)))
+        vssim = float(ssim(px, py))
+        wsp = float(ws_psnr(x, rec))
+        rt = bits_per_pixel(os.path.getsize(fc))
+        rows.append((rt, pr, vssim, wsp))
+        print(f"Decoding {fc}, compare it to {fn} \n "
+              f"Bitrate:{rt:.3f}bpp, PSNR:{pr:.2f}dB, SSIM:{vssim:.4f}, "
+              f"WS-PSNR:{wsp:.2f}dB")
+    rt, pr, vssim, wsp = np.mean(rows, axis=0)
+    print("-" * 53 + "\nAverage Performance\n" + "-" * 53)
+    print(f"Bitrate:{rt:.3f}bpp, PSNR:{pr:.2f}dB, SSIM:{vssim:.4f}, "
+          f"WS-PSNR:{wsp:.2f}dB")
+    return {"bpp": float(rt), "psnr_db": float(pr), "ssim": float(vssim),
+            "ws_psnr_db": float(wsp)}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="Pseudocylindrical convolution 360 image compression "
-                    "(PyTorch/CUDA, scan mode)")
+                    "(PyTorch/CUDA)")
     parser.add_argument("--img-list", nargs="*")
     parser.add_argument("--code-list", nargs="*")
     parser.add_argument("--out-list", nargs="*")
+    parser.add_argument("--img-file")
+    parser.add_argument("--code-file")
+    parser.add_argument("--out-file")
     parser.add_argument("--model-idx", type=int, default=0)
     parser.add_argument("--enc", action="store_true")
     parser.add_argument("--dec", action="store_true")
+    parser.add_argument("--test", action="store_true")
     parser.add_argument("--ssim", action="store_true")
+    parser.add_argument("--mode", choices=["scan", "dense", "incremental"],
+                        default="scan",
+                        help="encode mode; --dec and --test read it from "
+                             "the stream header")
     parser.add_argument("--device", default="cuda")
-    parser.add_argument("--batch", type=int, default=1)
-    parser.add_argument("--lanes", type=int, default=None)
+    parser.add_argument("--batch", type=int, default=1,
+                        help="scan mode: images per step program")
+    parser.add_argument("--lanes", type=int, default=None,
+                        help="scan mode: arithmetic-coder lanes per stream "
+                             "(default: scaled with the image size)")
     args = parser.parse_args(argv)
     n = len(MODEL_SSIM_LIST if args.ssim else MODEL_MSE_LIST)
     if not 0 <= args.model_idx < n:
         parser.error(f"--model-idx must be in [0, {n})")
-    if args.enc == args.dec:
-        parser.error("set exactly one of --enc / --dec")
+    if args.enc + args.dec + args.test != 1:
+        parser.error("set exactly one of --enc / --dec / --test")
+
+    def names(lst, fname):
+        return lst if lst is not None else (read_list(fname) if fname
+                                            else None)
+
+    img = names(args.img_list, args.img_file)
+    code = names(args.code_list, args.code_file)
+    out = names(args.out_list, args.out_file)
+    mse = not args.ssim
     if args.enc:
-        if not args.img_list or len(args.img_list) != len(
-                args.code_list or []):
-            parser.error("--enc needs --img-list and --code-list of one "
-                         "length")
-        encoding(args.img_list, args.code_list, args.model_idx,
-                 not args.ssim, args.device, args.batch, args.lanes)
-    else:
-        if not args.code_list or len(args.code_list) != len(
-                args.out_list or []):
-            parser.error("--dec needs --code-list and --out-list of one "
-                         "length")
-        decoding(args.code_list, args.out_list, args.model_idx,
-                 not args.ssim, args.device)
+        if not img or len(img) != len(code or []):
+            parser.error("--enc needs image and code lists of one length")
+        return encoding(img, code, args.model_idx, mse, args.device,
+                        args.mode, args.batch, args.lanes)
+    if args.dec:
+        if not code or len(code) != len(out or []):
+            parser.error("--dec needs code and output lists of one length")
+        return decoding(code, out, args.model_idx, mse, args.device)
+    if not code or len(code) != len(img or []):
+        parser.error("--test needs code and image lists of one length")
+    return decoding_and_test(code, img, args.model_idx, mse, args.device)
 
 
 if __name__ == "__main__":

@@ -42,6 +42,8 @@ def load_library():
                                              ctypes.c_long]
     lib.pcoder_decodes.argtypes = [ctypes.c_void_p, _i32p, ctypes.c_int,
                                    ctypes.c_int, _i32p]
+    lib.pcoder_encodes.argtypes = [ctypes.c_void_p, _i32p, ctypes.c_int,
+                                   _i32p, ctypes.c_int]
     lib.pcoder_encode_lanes.restype = ctypes.c_long
     lib.pcoder_encode_lanes.argtypes = [_u32p, _i64p, ctypes.c_int,
                                         ctypes.c_int32, _u8p, ctypes.c_long,
@@ -89,6 +91,18 @@ class Coder:
 
     def start_encoder(self):
         self._lib.pcoder_start_encoder(self._h)
+
+    def encodes(self, tables: np.ndarray, ncode: int, symbols: np.ndarray,
+                n: int):
+        """tables: (n, ncode+1) int32 CDF rows; symbols: (n,) in
+        [0, ncode)."""
+        if n:
+            tables = np.ascontiguousarray(tables, dtype=np.int32)
+            symbols = np.ascontiguousarray(symbols, dtype=np.int32)
+            assert tables.shape[0] >= n and tables.shape[1] == ncode + 1
+            assert symbols.shape[0] >= n
+            self._lib.pcoder_encodes(self._h, tables.ctypes.data_as(_i32p),
+                                     ncode, symbols.ctypes.data_as(_i32p), n)
 
     def encode_packed(self, packed: np.ndarray, total: int = 65536):
         """packed: (n,) uint32, v = low | ((high-1) << 16); fixed total."""

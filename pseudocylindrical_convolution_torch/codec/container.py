@@ -10,8 +10,8 @@ container.py`` writes it:
               window modes (burst, slab, hoist); bits 4-7 conv_chunks - 1
   vdim   u16  valid_dim
   h, w   u16  latent plane dims
-  lanes  u16  scan mode only (0 for dense)
-  batch  u8   scan executable batch (0 for dense)
+  lanes  u16  scan mode only (0 for dense and incremental)
+  batch  u8   scan executable batch (0 for dense and incremental)
   flags2 u8   bits 0-3 are JAX window modes (mm pads, Pallas window,
               fused step, fused unrolled), which this port never sets;
               bit 4 (FLAG2_TORCH) marks a stream written by this port;
@@ -40,6 +40,8 @@ VERSION = 1
 MODE_DENSE = 0
 MODE_SCAN = 1
 MODE_INCR = 2
+MODE_NAMES = {MODE_DENSE: "dense", MODE_SCAN: "scan",
+              MODE_INCR: "incremental"}
 FLAG_BF16 = 1
 FLAG_BURST = 2
 FLAG_SLAB = 4
@@ -120,3 +122,8 @@ def check_stream(hdr: dict, fname: str, mode: int, npart: int,
         raise ValueError(
             f"{fname}: stream/config mismatch: stream has {got}, decoder "
             f"expects {want}")
+    if mode != MODE_SCAN and (hdr["flags"], hdr["flags2"]) != (0,
+                                                               FLAG2_TORCH):
+        raise ValueError(
+            f"{fname}: stream profile flags {(hdr['flags'], hdr['flags2'])} "
+            f"do not belong to the port's {MODE_NAMES[mode]} mode")

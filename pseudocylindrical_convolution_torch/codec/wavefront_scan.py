@@ -44,8 +44,6 @@ from pseudocylindrical_convolution_torch.codec import container, device_ac
 from pseudocylindrical_convolution_torch.codec.coder_bridge import (
     encode_lanes)
 from pseudocylindrical_convolution_torch.codec.fused_kernel import fused
-from pseudocylindrical_convolution_torch.codec.incremental import (
-    stack_step_weights)
 from pseudocylindrical_convolution_torch.codec.pipeline import (
     BIAS, NSTEP, TOTAL, decode_image_from_latents, encode_latents_plane)
 from pseudocylindrical_convolution_torch.codec.wavefront import (
@@ -55,26 +53,11 @@ from pseudocylindrical_convolution_torch.codec.window_kernel import (
 from pseudocylindrical_convolution_torch.geometry import Geometry
 from pseudocylindrical_convolution_torch.models.cmpnet import (
     CMPNet, CMPNetConfig)
+from pseudocylindrical_convolution_torch.models.entropy import (
+    stack_step_weights)
 from pseudocylindrical_convolution_torch.ops.gmm_table import gmm_cdf_table
-
-def resolve_device(device) -> torch.device:
-    """The entry points' device: "cuda" unless the caller asks otherwise;
-    a CUDA request on a machine without a card raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run on the CPU")
-    return dev
-
-
-def pin_numerics() -> None:
-    """Fix the convolution algorithms and keep fp32 convs and matmuls in
-    full fp32 (no TF32), so an encode and a later decode on the card pick
-    the same algorithms and round the same way."""
-    torch.backends.cudnn.benchmark = False
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+from pseudocylindrical_convolution_torch.utils.device import (
+    check_model, pin_numerics, resolve_device)
 
 
 def _shear_kernel(w: torch.Tensor) -> torch.Tensor:
@@ -504,14 +487,6 @@ def get_scan_codec(cfg: CMPNetConfig, geom: Geometry, h: int, w: int,
     return codec
 
 
-def _check_model(model: CMPNet, dev: torch.device) -> None:
-    pdev = next(model.parameters()).device
-    if pdev.type != dev.type or (dev.index is not None
-                                 and pdev.index != dev.index):
-        raise ValueError(f"model lives on {pdev}, the codec runs on {dev}; "
-                         f"load it with load_model(..., device={str(dev)!r})")
-
-
 @torch.no_grad()
 def scan_encode_images(model: CMPNet, images, geom: Geometry, fnames,
                        batch: int = 1, lanes: int | None = None,
@@ -520,7 +495,7 @@ def scan_encode_images(model: CMPNet, images, geom: Geometry, fnames,
     files. Returns the file sizes (and the (N, npart, G, h, w) symbol
     planes with ``return_planes``)."""
     dev = resolve_device(device)
-    _check_model(model, dev)
+    check_model(model, dev)
     pin_numerics()
     cfg = model.cfg
     assert len(images) == len(fnames)
@@ -552,7 +527,7 @@ def scan_decode_images(model: CMPNet, geom: Geometry, fnames,
     is the one the first stream's header names; every stream must match
     it."""
     dev = resolve_device(device)
-    _check_model(model, dev)
+    check_model(model, dev)
     pin_numerics()
     cfg = model.cfg
     H, W = image_hw

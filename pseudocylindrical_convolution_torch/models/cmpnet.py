@@ -88,9 +88,8 @@ class _EntSubnet(nn.Module):
 
 
 class EntropyParams(nn.Module):
-    """EntropyNet's parameters (:272-301). The codec reads them through
-    ``codec.incremental.stack_step_weights``; the dense entropy network
-    itself comes with the dense codec."""
+    """EntropyNet's parameters (:272-301). The codecs read them through
+    ``models.entropy.stack_step_weights``."""
 
     def __init__(self, ngroup: int, cpn: int = 3, num_gaussian: int = 3):
         super().__init__()

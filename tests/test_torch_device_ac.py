@@ -3,7 +3,8 @@
 The port's lane encoder (its own build of csrc/coder.cpp) and its int64
 decoder (codec/device_ac.py) must implement the identical Nayuki-32 state
 machine: every decoded symbol must equal the encoded one, and the port's
-single-stream coder must write the bytes the lane encoder writes.
+single-stream coder must write the bytes the lane encoder writes, from
+packed ranges and from whole CDF rows alike.
 """
 
 import numpy as np
@@ -48,6 +49,11 @@ def test_single_stream_matches_lane_encoder():
     one = c.end_encoder_buf()
     payload, lane_nbytes = encode_lanes(packed, np.array([0, n]))
     assert payload == one and int(lane_nbytes[0]) == len(one)
+    # the same symbols from whole CDF rows (the incremental encoder's call)
+    e = Coder()
+    e.start_encoder()
+    e.encodes(tables, 8, syms, n)
+    assert e.end_encoder_buf() == one
     d = Coder()
     d.start_decoder_buf(one)
     np.testing.assert_array_equal(d.decodes(tables, 8, n), syms)

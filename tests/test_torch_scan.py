@@ -32,8 +32,10 @@ from pseudocylindrical_convolution_tpu.codec.wavefront_scan import (
     ScanWavefrontCodec as JaxScan)
 
 from pseudocylindrical_convolution_torch.codec import container
+from pseudocylindrical_convolution_torch.codec import pipeline as pl
 from pseudocylindrical_convolution_torch.codec.wavefront_scan import (
     ScanWavefrontCodec, scan_decode_images, scan_encode_images)
+from pseudocylindrical_convolution_torch.models.entropy import fused_weights
 from pseudocylindrical_convolution_torch.utils.checkpoint import load_model
 
 from torch_parity import (CFG, JCFG, jax_decode_latents, jax_encode_latents,
@@ -91,7 +93,9 @@ def test_roundtrip(model, valid, dtype, seed):
 
 
 def test_coder_ranges_and_tables_against_jax(model, valid):
-    """The port's per-step CDF rows equal the JAX dense tables and the
+    """The port's per-step CDF rows equal the port's own dense tables
+    (fp32, the counterpart of the JAX package's
+    test_scan_tables_match_dense_program), the JAX dense tables and the
     JAX scan codec's coder ranges, but for counted rows (at most 5%)."""
     params = jax_params(1)
     jc = JaxScan(JCFG, JCFG.geometry(), H, W, batch=B, lanes=L,
@@ -124,6 +128,19 @@ def test_coder_ranges_and_tables_against_jax(model, valid):
     differ = int((rows != dense).any(axis=2).sum())
     assert differ <= B * nsym * 5 // 100, differ
     assert np.abs(rows - dense).max() <= 2
+    # ... and against the port's own dense program on the same planes:
+    # two different torch programs, so rows may differ by 1 where the
+    # fp32 sums reassociate (5 of 432 rows at this seed)
+    sched = pl._Schedule(CFG.geometry(), H, W, CFG.ngroup, "cpu")
+    own = pl._table_body(fused_weights(model.ent, CFG.ngroup),
+                         torch.as_tensor(planes.reshape(
+                             B, CFG.npart, CFG.ngroup, H, W).astype(
+                             np.float32) - 3.5), CFG.geometry(),
+                         sched).numpy()
+    assert own.shape == rows.shape
+    differ = int((rows != own).any(axis=2).sum())
+    assert differ <= B * nsym * 5 // 100, differ
+    assert np.abs(rows - own).max() <= 1
 
 
 def test_image_path_against_jax(model, tmp_path):
