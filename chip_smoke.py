@@ -58,10 +58,39 @@ seconds:
      --model-idx 9: --enc in the scan, dense and incremental modes,
      --test of the dense stream (its bpp, viewport PSNR and SSIM, and
      WS-PSNR), and --dec of each stream; the three decoded .npy files
-     must be equal (one encoder made the latents).
+     must be equal (one encoder made the latents);
+ 10. train_parity: one micro-batch of the trainer's loss and every
+     parameter gradient at the tiny config (vd 8, ch 8, npart 4, 64x128,
+     seeded weights and images) on the card and on the CPU, in float32
+     and in float64, each within rtol 1e-4 and 1e-6 x max|g| per tensor;
+     the worst element of each;
+ 11. train: train.loop.run at the flagship width (vd 192, npart 16) from
+     demo/mse/10_192.pkl through --init-from, --batch-size 4 --acc-batch
+     3, 12 train and 4 test 512x1024 .npy images made from smooth_image,
+     2 epochs (the E/D phase, then the entropy phase, each validated and
+     saved); every loss finite, the entropy net and its Adam state
+     bit-identical through the E/D epoch, encoder/decoder/quant and
+     their Adam state through the entropy epoch, count moved, step 2 (a
+     smaller micro-batch only if 4 does not fit, with the peak memory of
+     each size tried); then make_train_step with check_iters=1, one
+     warm-up and 3 timed macro-steps per phase: seconds per macro-step
+     (median), images per second, peak memory;
+ 12. train_resume: in a child process with CUBLAS_WORKSPACE_CONFIG set
+     and torch.use_deterministic_algorithms(True), 4 macro-steps at the
+     flagship width (256x512 images, batch 1, acc 2, check_iters 2,
+     phases alternating) without a stop, against 2 steps, a saved and
+     loaded train state and 2 more: parameters, count and both Adam
+     states bit-equal (or, if torch refuses an op in that mode, the op
+     named and the runs held to allclose with the worst difference);
+ 13. train_codec: the _final.pkl that run() wrote, loaded with
+     load_model, encodes and decodes one image through the scan codec's
+     window profile with 0 symbol mismatches and 2 x 12 x nsteps window
+     kernel launches.
 
 With --profile, one more encode of the same plane per profile runs under
-torch.profiler and a "profile" line gives its kernels by device time.
+torch.profiler and a "profile" line gives its kernels by device time;
+in phase 11 one more macro-step per phase does, in a "train_profile"
+line.
 Then a {"kernels": [...]} line, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}. Any failed check raises.
 """
@@ -69,10 +98,12 @@ Then a {"kernels": [...]} line, the nvidia-smi line again, and last
 from __future__ import annotations
 
 import concurrent.futures
+import gc
 import hashlib
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -80,6 +111,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS = 989e12                # ... dense bf16 tensor-core peak
+FP32_FLOPS = 67e12                 # ... fp32 outside the tensor cores
 CHECKPOINT = os.path.join("demo", "mse", "10_192.pkl")
 T_START = time.time()
 
@@ -495,6 +527,411 @@ def smooth_image(seed: int = 0, hw=(512, 1024)):
     return np.clip(img, 0, 1)[None].astype(np.float32)
 
 
+TRAIN_IMAGES, TEST_IMAGES = 12, 4
+RESUME_CHILD = "--train-resume-child"
+
+
+def _grads(model, x, cfg, geom, lw):
+    """Loss and every parameter gradient (float64, on the CPU) of one
+    micro-batch of the trainer's loss."""
+    from pseudocylindrical_convolution_torch.parallel.train import (
+        _loss_terms)
+    loss, _ = _loss_terms(model, x, cfg, geom, lw)
+    loss.backward()
+    return loss.item(), {n: p.grad.detach().double().cpu()
+                         for n, p in model.named_parameters()}
+
+
+def train_parity_phase() -> None:
+    """Phase 10: the card's gradients against the CPU's, tiny config."""
+    import numpy as np
+    import torch
+    from pseudocylindrical_convolution_torch.models.cmpnet import (
+        CMPNet, CMPNetConfig)
+    from pseudocylindrical_convolution_torch.parallel.train import (
+        LossWeights)
+    t0 = time.time()
+    cfg = CMPNetConfig(valid_dim=8, channels=8, code_channels=8, npart=4)
+    geom, lw = cfg.geometry(), LossWeights(viewport_size=17)
+    x = np.random.default_rng(7).uniform(size=(2, 3, 64, 128)).astype(
+        np.float32)
+    report, bad = {}, []
+    rel = 1e-6
+    for dtype in (torch.float64, torch.float32):
+        res = {}
+        for dev in ("cpu", "cuda"):
+            model = CMPNet(cfg).init_random(
+                torch.Generator().manual_seed(3)).to(dev, dtype)
+            res[dev] = _grads(model, torch.as_tensor(x).to(dev, dtype), cfg,
+                              geom, lw)
+        (lc, gc), (lg, gg) = res["cpu"], res["cuda"]
+        worst = {"ratio": 0.0}
+        for name, want in gc.items():
+            got = gg[name]
+            tol = rel * float(want.abs().max()) + 1e-4 * want.abs()
+            err = (got - want).abs()
+            ratio = torch.where(tol > 0, err / tol.clamp_min(1e-300),
+                                torch.where(err > 0, torch.inf, 0.0))
+            i = int(ratio.argmax())
+            if float(ratio.reshape(-1)[i]) >= worst["ratio"]:
+                worst = {"ratio": float(ratio.reshape(-1)[i]),
+                         "tensor": name, "index": i,
+                         "card": float(got.reshape(-1)[i]),
+                         "cpu": float(want.reshape(-1)[i]),
+                         "max_abs_g": float(want.abs().max())}
+        key = str(dtype).split(".")[-1]
+        report[key] = {"loss_card": lg, "loss_cpu": lc,
+                       "atol_over_max_g": rel, "rtol": 1e-4,
+                       "worst": worst, "tensors": len(gc)}
+        if worst["ratio"] > 1 or not math.isclose(lg, lc, rel_tol=1e-4):
+            bad.append(key)
+    emit("train_parity", t0, **report)
+    if bad:
+        raise AssertionError(f"train_parity: the card's loss or gradients "
+                             f"leave the tolerance in {bad}: {report}")
+
+
+def train_flops(cfg, batch: int, hw) -> dict:
+    """Operations of one micro-batch's loss and backward per phase
+    ("ed", "ent"), counted by torch's flop counter on meta tensors."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from pseudocylindrical_convolution_torch.models.cmpnet import CMPNet
+    from pseudocylindrical_convolution_torch.parallel.train import (
+        LossWeights, _loss_terms)
+    model = CMPNet(cfg).to("meta")
+    x = torch.empty((batch, 3, *hw), device="meta")
+    out = {}
+    for phase in ("ed", "ent"):
+        for n, p in model.named_parameters():
+            p.requires_grad_(n.startswith("ent.") == (phase == "ent"))
+        counter = FlopCounterMode(display=False)
+        with counter:
+            loss, _ = _loss_terms(model, x, cfg, cfg.geometry(),
+                                  LossWeights())
+            loss.backward()
+        out[phase] = counter.get_total_flops()
+    return out
+
+
+def _write_npy_images(d: str, seeds, hw) -> list:
+    import numpy as np
+    os.makedirs(d, exist_ok=True)
+    names = []
+    for s in seeds:
+        img = np.round(smooth_image(s, hw)[0].transpose(1, 2, 0) * 255.0)
+        names.append(f"s{s}.npy")
+        np.save(os.path.join(d, names[-1]), img.astype(np.uint8))
+    return names
+
+
+def train_phase(tmp: str):
+    """Phase 11; returns the save directory of the run."""
+    import numpy as np
+    import torch
+    from pseudocylindrical_convolution_torch.parallel.train import (
+        LossWeights, make_train_step)
+    from pseudocylindrical_convolution_torch.train import loop
+    from pseudocylindrical_convolution_torch.train.dataset import (
+        SphereDataset, batch_iterator)
+    from pseudocylindrical_convolution_torch.utils.checkpoint import (
+        _nested_to_flat, load_param_tree)
+    t_phase = time.time()
+    hw = (512, 1024)
+    img_dir = os.path.join(tmp, "imgs")
+    train = _write_npy_images(img_dir, range(100, 100 + TRAIN_IMAGES), hw)
+    test = _write_npy_images(img_dir, range(200, 200 + TEST_IMAGES), hw)
+    for fn, names in (("train.txt", train), ("test.txt", test)):
+        with open(os.path.join(tmp, fn), "w") as f:
+            f.write("\n".join(names) + "\n")
+    ent0 = {f"ent.{k}": v for k, v in _nested_to_flat(
+        load_param_tree(CHECKPOINT)["ent"]).items()}
+    rec = {"loss": [], "mse": [], "rate": [], "phase": []}
+
+    def on_step(epoch, bi, train_ent, state, m):
+        for k in ("loss", "mse", "rate"):
+            rec[k].append(float(m[k]))
+        rec["phase"].append("ent" if train_ent else "ed")
+        params = dict(state.model.named_parameters())
+        if not train_ent:
+            for n, v in ent0.items():
+                if not np.array_equal(params[n].detach().cpu().numpy(), v):
+                    raise AssertionError(f"train: {n} changed in the E/D "
+                                         f"phase")
+            if state.opt_ent.state:
+                raise AssertionError("train: the entropy Adam state moved "
+                                     "in the E/D phase")
+            rec["ed_params"] = {n: p.detach().clone()
+                                for n, p in params.items()
+                                if not n.startswith("ent.")}
+            rec["ed_adam"] = _adam_copy(state.opt_other)
+        else:
+            for n, v in rec["ed_params"].items():
+                if not torch.equal(params[n], v):
+                    raise AssertionError(f"train: {n} changed in the "
+                                         f"entropy phase")
+            if not _adam_equal(state.opt_other, rec["ed_adam"]):
+                raise AssertionError("train: the E/D Adam state moved in "
+                                     "the entropy phase")
+
+    tried = []
+    for bs in (4, 2, 1):
+        save = os.path.join(tmp, f"save_b{bs}")
+        args = loop.build_argparser().parse_args([
+            "--img-dir", img_dir,
+            "--train-list", os.path.join(tmp, "train.txt"),
+            "--test-list", os.path.join(tmp, "test.txt"),
+            "--init-from", CHECKPOINT, "--batch-size", str(bs),
+            "--acc-batch", "3", "--test-batch-size", "4", "--epochs", "2",
+            "--log-every", "1", "--save-dir", save, "--device", "cuda"])
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        try:
+            state = loop.run(args, on_step=on_step)
+        except torch.cuda.OutOfMemoryError:
+            tried.append({"batch_size": bs, "fits": False,
+                          "peak_bytes": torch.cuda.max_memory_allocated()})
+            for k in rec:
+                rec[k] = [] if isinstance(rec[k], list) else None
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        torch.cuda.synchronize()
+        run_s = time.time() - t0
+        tried.append({"batch_size": bs, "fits": True,
+                      "peak_bytes": torch.cuda.max_memory_allocated()})
+        break
+    else:
+        raise AssertionError(f"train: no micro-batch size fits: {tried}")
+    steps_per_epoch = TRAIN_IMAGES // (bs * 3)
+    if not all(math.isfinite(v) for k in ("loss", "mse", "rate")
+               for v in rec[k]):
+        raise AssertionError(f"train: a loss is not finite: {rec['loss']}")
+    if rec["phase"] != ["ed"] * steps_per_epoch + ["ent"] * steps_per_epoch:
+        raise AssertionError(f"train: phases {rec['phase']}")
+    if state.step != 2 * steps_per_epoch or not bool(state.count.any()):
+        raise AssertionError(f"train: step {state.step}, count moved "
+                             f"{bool(state.count.any())}")
+    saved = sorted(os.listdir(save))
+    run_steps = state.step
+
+    # the step alone, maintenance every step (check_iters=1)
+    step = make_train_step(state.model.cfg, state.model.cfg.geometry(),
+                           LossWeights(), acc_batch=3, check_iters=1)
+    ds = SphereDataset(img_dir, os.path.join(tmp, "train.txt"))
+    macro = torch.as_tensor(next(batch_iterator(
+        ds, np.arange(len(ds)), bs, 3)), device="cuda")
+    flops = train_flops(state.model.cfg, bs, hw)
+    torch.cuda.reset_peak_memory_stats()
+    timing = {}
+    for train_ent in (False, True):
+        secs, losses = [], []
+        for i in range(4):                       # 1 warm-up + 3 timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, macro, train_ent)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            if i:
+                secs.append(time.perf_counter() - t0)
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"train: step losses {losses}")
+        med = statistics.median(secs)
+        phase = "ent" if train_ent else "ed"
+        timing[phase] = {
+            "s_per_macro_step": secs, "median_s": med,
+            "images_per_s": 3 * bs / med, "losses": losses,
+            "flops": 3 * flops[phase],
+            "bound_s": 3 * flops[phase] / FP32_FLOPS,
+            "flops_per_s": 3 * flops[phase] / med}
+    if "--profile" in sys.argv[1:]:
+        for train_ent in (False, True):
+            state = train_profile(step, state, macro, train_ent,
+                                  timing["ent" if train_ent else "ed"])
+    emit("train", t_phase, nvidia_smi=nvidia_smi(), batch_size=bs,
+         acc_batch=3, micro_batches_tried=tried, run_s=round(run_s, 3),
+         steps=run_steps, losses=rec["loss"], mse=rec["mse"],
+         rate=rec["rate"], phases=rec["phase"], files=saved,
+         step_timing=timing,
+         step_peak_bytes=torch.cuda.max_memory_allocated())
+    return save
+
+
+def train_profile(step, state, macro, train_ent: bool, timed: dict):
+    """One more macro-step of a phase under torch.profiler: kernels by
+    device time, and the device's busy share of the unprofiled median
+    step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, macro, train_ent)
+        torch.cuda.synchronize()
+    ev = [(e.key, e.self_device_time_total / 1e3, e.count)
+          for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy = sum(t for _, t, _ in ev) / 1e3
+    top = sorted(ev, key=lambda e: -e[1])[:20]
+    emit("train_profile", t0, step_phase="ent" if train_ent else "ed",
+         busy_s=busy, busy_share_of_step=busy / timed["median_s"],
+         kernels=len(ev), launches=sum(c for _, _, c in ev),
+         top=[{"kernel": k[:90], "ms": t, "calls": c} for k, t, c in top])
+    return state
+
+
+def _adam_copy(opt) -> dict:
+    return {k: {kk: vv.clone() for kk, vv in v.items()}
+            for k, v in opt.state_dict()["state"].items()}
+
+
+def _adam_equal(opt, ref: dict) -> bool:
+    import torch
+    st = opt.state_dict()["state"]
+    return st.keys() == ref.keys() and all(
+        torch.equal(st[k][kk], ref[k][kk]) for k in st for kk in st[k])
+
+
+def _resume_runs(deterministic: bool) -> dict:
+    """The child's two runs: 4 steps straight, and 2 + save/load + 2;
+    returns what differs between them."""
+    import numpy as np
+    import torch
+    from pseudocylindrical_convolution_torch.models.cmpnet import (
+        CMPNetConfig)
+    from pseudocylindrical_convolution_torch.parallel.train import (
+        LossWeights, create_train_state, make_train_step)
+    from pseudocylindrical_convolution_torch.utils import checkpoint as ck
+    from pseudocylindrical_convolution_torch.utils.device import (
+        pin_numerics)
+    torch.use_deterministic_algorithms(deterministic)
+    pin_numerics()
+    cfg = CMPNetConfig(valid_dim=192)
+    geom = cfg.geometry()
+    tree = ck.load_param_tree(CHECKPOINT)
+    step = make_train_step(cfg, geom, LossWeights(), acc_batch=2,
+                           check_iters=2)
+    batches = [torch.as_tensor(np.stack([smooth_image(300 + 2 * i + j,
+                                                      (256, 512))
+                                         for j in range(2)]),
+                               device="cuda") for i in range(4)]
+
+    def fresh():
+        model = ck.load_model(tree, cfg, "cuda").requires_grad_(True)
+        return create_train_state(model, 1e-4)
+
+    def go(state, idx):
+        for i in idx:
+            state, _ = step(state, batches[i], i % 2 == 1)
+        return state
+
+    ref = go(fresh(), range(4))
+    part = go(fresh(), range(2))
+    with tempfile.TemporaryDirectory() as tmp:
+        fn = os.path.join(tmp, "ts.pkl")
+        ck.save_train_state(part, fn)
+        again = fresh()
+        ck.restore_train_state(again, ck.load_train_state(fn))
+    again = go(again, range(2, 4))
+    torch.cuda.synchronize()
+    pairs = [(f"param {n}", a, b) for (n, a), (_, b) in zip(
+        ref.model.state_dict().items(), again.model.state_dict().items())]
+    pairs.append(("count", ref.count, again.count))
+    for name, oa, ob in (("adam_other", ref.opt_other, again.opt_other),
+                         ("adam_ent", ref.opt_ent, again.opt_ent)):
+        sa, sb = oa.state_dict()["state"], ob.state_dict()["state"]
+        for k in sa:
+            for kk in sa[k]:
+                pairs.append((f"{name} {k} {kk}", sa[k][kk], sb[k][kk]))
+    differ = [n for n, a, b in pairs if not torch.equal(a, b)]
+    worst = max((float((a.double() - b.double()).abs().max()), n)
+                for n, a, b in pairs)
+    return {"tensors": len(pairs), "differing": differ[:20],
+            "n_differing": len(differ), "worst_abs_diff": worst[0],
+            "worst_tensor": worst[1], "steps": again.step,
+            "allclose": all(torch.allclose(a.double(), b.double(),
+                                           rtol=1e-5, atol=1e-7)
+                            for _, a, b in pairs)}
+
+
+def train_resume_child() -> int:
+    """Phase 12's body, in its own process (the workspace setting has to
+    precede CUDA): one JSON line on stdout."""
+    t0 = time.time()
+    try:
+        out = {"deterministic": True, **_resume_runs(True)}
+    except RuntimeError as e:
+        if "deterministic" not in str(e):
+            raise
+        out = {"deterministic": False, "refused_op": str(e)[:400],
+               **_resume_runs(False)}
+    out["seconds"] = round(time.time() - t0, 3)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def train_resume_phase() -> None:
+    """Phase 12: run the child and hold it to its contract."""
+    t0 = time.time()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          RESUME_CHILD], env=env, capture_output=True,
+                         text=True, timeout=900)
+    if out.returncode != 0:
+        raise AssertionError(f"train_resume: the child failed "
+                             f"({out.returncode}): {out.stderr[-3000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    emit("train_resume", t0, **res)
+    if res["deterministic"] and res["n_differing"]:
+        raise AssertionError(f"train_resume: {res['n_differing']} tensors "
+                             f"differ after the resume: {res['differing']}")
+    if not res["deterministic"] and not res["allclose"]:
+        raise AssertionError(f"train_resume: not even allclose: {res}")
+
+
+def train_codec_phase(save: str, wk) -> None:
+    """Phase 13: the trained checkpoint through the window profile."""
+    import numpy as np
+    import torch
+    from pseudocylindrical_convolution_torch.codec import wavefront_scan
+    from pseudocylindrical_convolution_torch.codec.wavefront import (
+        wavefront_schedule)
+    from pseudocylindrical_convolution_torch.models.cmpnet import (
+        CMPNetConfig)
+    from pseudocylindrical_convolution_torch.utils.checkpoint import (
+        load_model)
+    t0 = time.time()
+    cfg = CMPNetConfig(valid_dim=192)
+    geom = cfg.geometry()
+    H, W = 512, 1024
+    h, w = H // geom.npart // 8, W // 8
+    path = os.path.join(save, "ent_opt_192_192_16_final.pkl")
+    model = load_model(path, cfg, device="cuda")
+    x = smooth_image(0, (H, W))
+    with tempfile.TemporaryDirectory() as tmp:
+        fn = os.path.join(tmp, "img.bin")
+        wk.launches = 0                     # the trained model's path
+        (size,), planes = wavefront_scan.scan_encode_images(
+            model, [x], geom, [fn], device="cuda", return_planes=True)
+        rec, dplanes = wavefront_scan.scan_decode_images(
+            model, geom, [fn], (H, W), device="cuda", return_planes=True)
+        torch.cuda.synchronize()
+        launches = wk.launches              # ... ends here
+    _, _, nsteps = wavefront_schedule(geom, h, w, cfg.ngroup)
+    valid = np.zeros((geom.npart, cfg.ngroup, h, w), bool)
+    for b, wl in enumerate(geom.hindex(h * geom.npart, w)):
+        valid[b, :, :, :int(wl)] = True
+    nbad = int(((dplanes != planes) & valid[None]).sum())
+    rec = rec.float().cpu().numpy()
+    mse = float(np.mean((rec - x) ** 2))
+    emit("train_codec", t0, weights=os.path.basename(path), bytes=size,
+         bpp=size * 8 / (H * W), psnr_db=10 * math.log10(1.0 / max(mse,
+                                                                    1e-12)),
+         symbol_mismatches=nbad, window_launches=launches)
+    if nbad or launches != 2 * 12 * nsteps or not np.isfinite(rec).all():
+        raise AssertionError(f"train_codec: {nbad} symbol mismatches, "
+                             f"{launches} window launches (expected "
+                             f"{2 * 12 * nsteps})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -674,6 +1111,18 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         profile_phase(codec, planes, t_enc, "window_kernel", 12 * nsteps)
         profile_phase(fcodec, planes, f_enc, "fused_kernel", 12 * nsteps)
+
+    # training: the codec's objects go first, so the card is free for it
+    del model, codec, fcodec, rec, rec_planes, frec
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_parity_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        save = train_phase(tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_resume_phase()
+        train_codec_phase(save, wk)
     print(json.dumps({"kernels": [entry, fentry]}), flush=True)
     print(smi, flush=True)
     print(f"wall {time.time() - T_START:.1f} s", file=sys.stderr)
@@ -684,4 +1133,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(train_resume_child() if RESUME_CHILD in sys.argv[1:]
+             else main())

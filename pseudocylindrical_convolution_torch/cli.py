@@ -8,6 +8,9 @@ the JAX package's ``cli.py`` has it).
   python -m pseudocylindrical_convolution_torch.cli --test \
       --code-list a.bin --img-list a.png --model-idx 9
 
+A registry entry's checkpoint is ``{prefix}.pkl`` under demo/{mse,ssim},
+or the reference's split ``{prefix}_{encoder,decoder,ent}.pt`` files,
+converted at load.
 ``--img-file``/``--code-file``/``--out-file`` name list files, one path
 per line, in place of the lists. Images are 8-bit BGR files read with
 OpenCV (as the reference does), or ``.npy`` arrays of shape (H, W, 3);
@@ -82,16 +85,50 @@ def write_image(path: str, rec) -> None:
         cv2.imwrite(path, img)
 
 
-def _setup(model_idx: int, mse: bool, device: str):
-    """The registry entry's model, loaded onto ``device``."""
-    from pseudocylindrical_convolution_torch.models.cmpnet import (
-        CMPNetConfig)
+def load_codec_params(model_dir: str, prefix: str, template=None) -> dict:
+    """The parameter tree of ``{prefix}.pkl``, else the reference's split
+    ``{prefix}_{encoder,decoder,ent}.pt`` files converted (JAX
+    ``cli.py:75-100``). ``template`` (a parameter tree of the model) makes
+    the conversion strict both ways, like the reference's
+    ``load_state_dict`` (pseudo_codec.py:227)."""
     from pseudocylindrical_convolution_torch.utils.checkpoint import (
-        load_model)
+        load_param_tree, load_torch_state_dict, reference_to_params)
+    pkl = os.path.join(model_dir, f"{prefix}.pkl")
+    if os.path.exists(pkl):
+        return load_param_tree(pkl)
+    sds = {}
+    for part in ("encoder", "decoder", "ent"):
+        path = os.path.join(model_dir, f"{prefix}_{part}.pt")
+        sds[part] = (load_torch_state_dict(path) if os.path.exists(path)
+                     else None)
+    if not any(sds.values()):
+        raise FileNotFoundError(
+            f"no checkpoint {pkl} or {prefix}_*.pt under {model_dir}")
+    return reference_to_params(sds["encoder"], sds["decoder"], sds["ent"],
+                               template=template)
+
+
+def _setup(model_idx: int, mse: bool, device: str):
+    """The registry entry's model (its ``.pkl``, else the reference's
+    split ``.pt`` files), loaded onto ``device``."""
+    from pseudocylindrical_convolution_torch.models.cmpnet import (
+        CMPNet, CMPNetConfig)
+    from pseudocylindrical_convolution_torch.utils.checkpoint import (
+        load_model, params_to_tree)
     path, vd = model_spec(model_idx, mse)
+    cfg = CMPNetConfig(valid_dim=vd)
+    mdir, name = os.path.split(path)
+    prefix = name[: -len(".pkl")]
+    template = None
     if not os.path.exists(path):
-        raise SystemExit(f"--model-idx {model_idx}: no checkpoint {path}")
-    return load_model(path, CMPNetConfig(valid_dim=vd), device)
+        if not any(os.path.exists(os.path.join(mdir, f"{prefix}_{p}.pt"))
+                   for p in ("encoder", "decoder", "ent")):
+            raise SystemExit(f"--model-idx {model_idx}: no checkpoint "
+                             f"{path} nor the reference's {prefix}_"
+                             f"{{encoder,decoder,ent}}.pt")
+        template = params_to_tree(CMPNet(cfg))
+    return load_model(load_codec_params(mdir, prefix, template), cfg,
+                      device)
 
 
 def read_list(fname: str) -> list:

@@ -1,7 +1,7 @@
-"""CMPNetV2MF at codec time: image -> integer latents -> image.
+"""CMPNetV2MF: the train graph, and image -> integer latents -> image.
 
 Structural reference: model_zoo_v2.py:304-381; the port of the JAX
-package's ``models/cmpnet.py`` (``CMPNetConfig``,
+package's ``models/cmpnet.py`` (``CMPNetConfig``, ``cmpnet_apply``,
 ``cmpnet_encode_latents``, ``cmpnet_decode_latents``). ``CMPNet`` holds
 every parameter of one rate point under the JAX tree's key names, so
 ``utils.checkpoint.params_from_jax`` fills it with ``load_state_dict``.
@@ -15,6 +15,8 @@ import torch
 from torch import nn
 
 from pseudocylindrical_convolution_torch.geometry import Geometry
+from pseudocylindrical_convolution_torch.models.entropy import (
+    entropy_net_apply)
 from pseudocylindrical_convolution_torch.models.layers import init_weights
 from pseudocylindrical_convolution_torch.models.transform import (
     Decoder, Encoder)
@@ -22,7 +24,7 @@ from pseudocylindrical_convolution_torch.ops.clip import clip_data
 from pseudocylindrical_convolution_torch.ops.dtow import dtow
 from pseudocylindrical_convolution_torch.ops.fill import _fill_mask_t
 from pseudocylindrical_convolution_torch.ops.quant import (
-    pseudo_dquant, pseudo_quant, quant_init_weight)
+    PseudoQuant, pseudo_dquant, pseudo_quant, quant_init_weight)
 from pseudocylindrical_convolution_torch.ops.slice import (
     sphere_slice, sphere_uslice)
 
@@ -37,6 +39,8 @@ class CMPNetConfig:
     npart: int = 16
     quant_levels: int = 8
     opt: bool = True
+    init: bool = False          # freeze E/D grads while initializing entropy
+    top_alpha: float = 1e-4     # mse: 1e-4, ssim: 1e-2 (model_zoo_v2.py:314)
 
     @property
     def ngroup(self) -> int:
@@ -135,6 +139,34 @@ def _code_mask(geom: Geometry, n: int, h: int, w: int,
                device) -> torch.Tensor:
     m = _fill_mask_t(geom, h, w, 0, 0, str(device))   # (npart, h, w)
     return m[:, None].repeat(n, 1, 1, 1)               # (n*npart, 1, h, w)
+
+
+def cmpnet_apply(model: CMPNet, x: torch.Tensor, geom: Geometry):
+    """The train-time forward (model_zoo_v2.py:322-334).
+
+    x: (N, 3, H, W) in [0, 1]. Returns (reconstruction, ent_vec, mask,
+    quant_hist): the rate per latent symbol times its validity mask, the
+    mask, and the quantizer's negative usage histogram (for the trainer's
+    ``count``)."""
+    cfg = model.cfg
+    n = x.shape[0]
+    # sphere_slice's tiles come out in a channels-last layout; on the CPU
+    # the backward of the first strided 1x1 conv on that layout corrupts
+    # memory when torch runs it on several threads (torch 2.13, oneDNN
+    # 3.12), so the train graph takes them contiguous
+    code = model.encoder(sphere_slice(x, geom).contiguous(), geom)
+    qmask = _code_mask(geom, n, code.shape[2], code.shape[3], x.device)
+    code_f, code_i, hist = PseudoQuant.apply(code, model.quant.weight, qmask,
+                                             cfg.top_alpha)
+    # channel stub mask to valid_dim (StubMask, model_zoo_v2.py:315,326-327)
+    vm = (torch.arange(cfg.code_channels, device=x.device) < cfg.valid_dim
+          ).to(code_f.dtype)[None, :, None, None]
+    tx = sphere_uslice(model.decoder(code_f * vm, geom), geom)
+    # entropy branch: Extract(valid_dim) -> Dtow d2w -> -mean -> EntropyNet
+    qy = dtow(code_i[:, : cfg.valid_dim], 2, True) - cfg.mean_val
+    ent_vec, mask = entropy_net_apply(model.ent, qy, geom, cfg.ngroup,
+                                      drop=cfg.init)
+    return clip_data(tx), ent_vec, mask, hist
 
 
 def cmpnet_encode_latents(model: CMPNet, x: torch.Tensor,

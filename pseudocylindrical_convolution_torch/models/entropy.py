@@ -1,7 +1,8 @@
-"""Group-autoregressive GMM entropy model, dense causal form, at codec time.
+"""Group-autoregressive GMM entropy model, dense causal form.
 
 The port of the JAX package's ``models/entropy.py`` (``entropy_net_raw``,
-``entropy_subnet_raw``); structural reference model_zoo_v2.py:214-301.
+``entropy_subnet_raw``, ``entropy_net_apply``); structural reference
+model_zoo_v2.py:214-301.
 Causality comes from the causal pseudo-pad and the static v5/v6 weight
 masks (ops/masks.py) multiplied onto the conv weights.
 
@@ -16,16 +17,27 @@ future value move the rounding of a present output.
 
 Activations are held channel-major, (S, C, n, npart*h*w) with S the
 stacked subnets, so a layer is a gather, a copy and a batched matmul.
+
+Training (``entropy_net_apply``) has no bit contract and needs a backward,
+so it runs each layer as the causal pseudo_pad and one grouped
+``F.conv2d`` over the three subnets, as the JAX training form does; an
+im2col operand would hold 354 MB per hidden layer per image for the
+backward.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from pseudocylindrical_convolution_torch.geometry import Geometry
-from pseudocylindrical_convolution_torch.ops.fill import _fill_mask_t
+from pseudocylindrical_convolution_torch.ops.context_reshape import (
+    context_reshape)
+from pseudocylindrical_convolution_torch.ops.fill import (
+    _fill_mask_t, pseudo_fill)
+from pseudocylindrical_convolution_torch.ops.gmm import entropy_gmm_loss
 from pseudocylindrical_convolution_torch.ops.masks import conv_mask
-from pseudocylindrical_convolution_torch.ops.pad import _pad_index
+from pseudocylindrical_convolution_torch.ops.pad import _pad_index, pseudo_pad
 
 # the fused subnet order of the JAX package (entropy.py:111): the raw
 # output's channel blocks are weight, delta, mean
@@ -44,13 +56,12 @@ def _layers(net, cpn: int, num_gaussian: int):
     return out
 
 
-@torch.no_grad()
-def stack_layer_weights(subnets, ngroup: int, cpn: int = 3,
-                        num_gaussian: int = 3) -> list[dict]:
+def _stack_layers(subnets, ngroup: int, cpn: int = 3,
+                  num_gaussian: int = 3) -> list[dict]:
     """Per-layer causally-masked weights of the given subnets
-    (``_EntSubnet`` modules) stacked over them: 12 dicts {"w": (S, G,
-    cout, G*cin, 5, 5), "b": (S, G*cout), "a": (S, G*cout) or None} in
-    execution order."""
+    (``_EntSubnet`` modules) stacked over them, with their gradients: 12
+    dicts {"w": (S, G, cout, G*cin, 5, 5), "b": (S, G*cout), "a": (S,
+    G*cout) or None} in execution order."""
     per = [_layers(s.net, cpn, num_gaussian) for s in subnets]
     out = []
     for li, (_, cin, cout, hidden, act) in enumerate(per[0]):
@@ -67,12 +78,59 @@ def stack_layer_weights(subnets, ngroup: int, cpn: int = 3,
     return out
 
 
+stack_layer_weights = torch.no_grad()(_stack_layers)
+
+
 def stack_step_weights(ent, ngroup: int, cpn: int = 3,
                        num_gaussian: int = 3) -> list[dict]:
     """``stack_layer_weights`` of the three subnets of ``ent``
     (``EntropyParams``) in the fused order weight, delta, mean."""
     return stack_layer_weights([getattr(ent, s) for s in SUBNETS], ngroup,
                                cpn, num_gaussian)
+
+
+def entropy_net_train_raw(ent, x: torch.Tensor, geom: Geometry,
+                          ngroup: int, cpn: int = 3,
+                          num_gaussian: int = 3) -> torch.Tensor:
+    """The three subnets as grouped convs, with gradients (the JAX
+    training form, entropy.py:113-126): filled biased symbols (N*npart,
+    ngroup, h, w) -> (N*npart, 3*ngroup*ng, h, w), blocks weight, delta,
+    mean."""
+    layers = _stack_layers([getattr(ent, s) for s in SUBNETS], ngroup, cpn,
+                           num_gaussian)
+
+    def conv(t, lay):
+        w = lay["w"]
+        y = F.conv2d(pseudo_pad(t, geom, 2, causal=True),
+                     w.reshape(-1, *w.shape[3:]), lay["b"].reshape(-1),
+                     groups=w.shape[0])
+        if lay["a"] is not None:
+            y = torch.where(y >= 0, y, lay["a"].reshape(1, -1, 1, 1) * y)
+        return pseudo_fill(y, geom)
+
+    y = conv(pseudo_fill(x, geom).repeat(1, 3, 1, 1), layers[0])
+    for r in range(5):
+        u = conv(y, layers[1 + 2 * r])
+        y = y + conv(u, layers[2 + 2 * r])
+    return conv(y, layers[11])
+
+
+def entropy_net_apply(ent, x: torch.Tensor, geom: Geometry, ngroup: int,
+                      cpn: int = 3, num_gaussian: int = 3,
+                      drop: bool = False):
+    """Train-time rate: (nats per symbol * mask, mask), both flattened,
+    on biased symbols x (N*npart, ngroup, h, w). ``drop`` (the
+    entropy-only init phase) stops the gradient into x."""
+    mask = pseudo_fill(torch.ones_like(x), geom).reshape(-1)
+    x = pseudo_fill(x, geom)
+    tx = x.detach() if drop else x
+    raw = entropy_net_train_raw(ent, tx, geom, ngroup, cpn, num_gaussian)
+    c = ngroup * num_gaussian
+    weight = torch.softmax(context_reshape(raw[:, :c], ngroup), dim=1)
+    delta = torch.relu(context_reshape(raw[:, c:2 * c], ngroup)) + 1e-6
+    mean = context_reshape(raw[:, 2 * c:], ngroup)
+    loss_vec = entropy_gmm_loss(weight, delta, mean, tx.reshape(-1, 1))
+    return loss_vec * mask, mask
 
 
 def _matmul_operands(stacked: list[dict]) -> list[dict]:

@@ -1,7 +1,7 @@
-"""GDN / IGDN masked to the valid band region (forward only).
+"""GDN / IGDN masked to the valid band region.
 
 Behavioral reference: PCONV_operator/PseudoContextV2.py:133-216 (PseudoGDNV2)
-and PCONV_operator/GDN.py:6-22 (LowerBound).
+and PCONV_operator/GDN.py:6-22 (LowerBound clamp with gradient gating).
 """
 
 from __future__ import annotations
@@ -22,10 +22,24 @@ _BETA_BOUND = (_BETA_MIN + _PEDESTAL) ** 0.5
 _GAMMA_BOUND = _REPARAM_OFFSET
 
 
+class LowerBound(torch.autograd.Function):
+    """max(x, bound) whose gradient passes where x was not clamped, or
+    where it pushes x upward (g < 0 raises x under gradient descent;
+    GDN.py:15-21)."""
+
+    @staticmethod
+    def forward(ctx, x, bound):
+        ctx.save_for_backward(x >= bound)
+        return torch.clamp(x, min=bound)
+
+    @staticmethod
+    def backward(ctx, g):
+        (kept,) = ctx.saved_tensors
+        return torch.where(kept | (g < 0), g, 0.0), None
+
+
 def lower_bound(x: torch.Tensor, bound: float) -> torch.Tensor:
-    """LowerBound's forward: max(x, bound). (Its gradient gating is a
-    training concern and comes with the training port.)"""
-    return torch.clamp(x, min=bound)
+    return LowerBound.apply(x, bound)
 
 
 def gdn_apply(beta: torch.Tensor, gamma: torch.Tensor, x: torch.Tensor,

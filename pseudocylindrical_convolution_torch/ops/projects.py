@@ -1,13 +1,14 @@
-"""MultiProject, forward: render 14 fixed rectilinear viewports from an
-ERP image.
+"""MultiProject: render 14 fixed rectilinear viewports from an ERP image.
 
-The port of the forward of the JAX package's ``ops/projects.py``;
-behavioral reference extension/projects_cuda.cu + projects.hpp (yaw about
-z by theta, then pitch about the rotated y axis by -phi) and
+The port of the JAX package's ``ops/projects.py``; behavioral reference
+extension/projects_cuda.cu + projects.hpp (yaw about z by theta, then
+pitch about the rotated y axis by -phi) and
 PCONV_operator/MultiProject.py:39-40 for the 14 viewport directions. The
 sampling grids are static per (h_out, w_out, fov, H, W), so the op is a
-precomputed 4-tap bilinear gather. The custom backward (hit-count
-normalized) belongs to training, which is not ported yet.
+precomputed 4-tap bilinear gather. Its backward is the reference
+wrapper's, not the gather's adjoint: the scattered gradient divided by
+each pixel's summed tap weight (PCONV_operator/MultiProject.py:23:
+grad / (count + 1e-6)).
 """
 
 from __future__ import annotations
@@ -91,18 +92,60 @@ def _bilinear_taps(grids: np.ndarray, H: int, W: int) -> list:
                             (ph, tw, (1 - tx) * ty), (ph, pw, tx * ty))]
 
 
+@functools.lru_cache(maxsize=None)
+def _device_taps(h_out: int, w_out: int, fov: float, H: int, W: int,
+                 thetas: tuple, phis: tuple, device: str):
+    """The 4 taps' flat indices and weights on ``device``, each (4,
+    nview*h_out*w_out), and the per-pixel tap weight sum (H*W,) that the
+    backward divides by; uploaded once per (shape, device)."""
+    grids = _view_grids(h_out, w_out, fov, H, W, thetas, phis)
+    taps = _bilinear_taps(grids, H, W)
+    cnt = np.zeros(H * W, np.float32)
+    for i, w in taps:
+        np.add.at(cnt, i.reshape(-1), w.reshape(-1))
+    dev = torch.device(device)
+    return (torch.tensor(np.stack([i.reshape(-1) for i, _ in taps]),
+                         device=dev),
+            torch.tensor(np.stack([w.reshape(-1) for _, w in taps]),
+                         device=dev),
+            torch.tensor(cnt, device=dev))
+
+
+class _MultiProject(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, h_out, w_out, fov, thetas, phis):
+        n, c, H, W = x.shape
+        idx, wgt, cnt = _device_taps(h_out, w_out, fov, H, W, thetas, phis,
+                                     str(x.device))
+        xf = x.reshape(n, c, H * W)
+        out = 0.0
+        for k in range(4):
+            out = out + xf[:, :, idx[k]] * wgt[k]
+        ctx.taps = (idx, wgt, cnt)
+        ctx.shape = (n, c, H, W)
+        nv = len(thetas)
+        return out.reshape(n, c, nv, h_out, w_out).permute(
+            0, 2, 1, 3, 4).reshape(n * nv, c, h_out, w_out)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, wgt, cnt = ctx.taps
+        n, c, H, W = ctx.shape
+        gg = g.reshape(n, -1, c, g.shape[-2] * g.shape[-1]).permute(
+            0, 2, 1, 3).reshape(n, c, -1)
+        acc = torch.zeros((n, c, H * W), dtype=g.dtype, device=g.device)
+        for k in range(4):
+            acc.index_add_(2, idx[k], gg * wgt[k])
+        dx = acc / (cnt + 1e-6)
+        return dx.reshape(n, c, H, W), None, None, None, None, None
+
+
 def multi_project(x: torch.Tensor, h_out: int = 171, w_out: int = 256,
                   fov: float = 0.5, thetas: tuple = VIEW_THETAS,
                   phis: tuple = VIEW_PHIS) -> torch.Tensor:
     """(N, C, H, W) ERP -> (N*nview, C, h_out, w_out) viewports, views of
     one image together. Custom (thetas, phis) tuples give MultiProjectM
     semantics (PCONV_operator/MultiProject.py:25-33)."""
-    n, c, H, W = x.shape
-    grids = _view_grids(h_out, w_out, fov, H, W, tuple(thetas), tuple(phis))
-    xf = x.float().reshape(n, c, H * W)
-    out = 0.0
-    for idx, w in _bilinear_taps(grids, H, W):
-        out = out + (xf[:, :, torch.as_tensor(idx, device=x.device)]
-                     * torch.as_tensor(w, device=x.device))
-    nv = grids.shape[0]
-    return out.permute(0, 2, 1, 3, 4).reshape(n * nv, c, h_out, w_out)
+    x = x.to(torch.promote_types(x.dtype, torch.float32))   # fp32 or fp64
+    return _MultiProject.apply(x, h_out, w_out, fov, tuple(thetas),
+                               tuple(phis))

@@ -31,14 +31,15 @@ def _window(window_size: int = 11, sigma: float = 1.5) -> np.ndarray:
 def _filter(x: torch.Tensor, w2: np.ndarray) -> torch.Tensor:
     """Depthwise SAME conv with zero padding (conv2d, groups=channel)."""
     c, k = x.shape[1], w2.shape[0]
-    w = torch.tensor(w2, device=x.device)[None, None].expand(
+    w = torch.tensor(w2, device=x.device, dtype=x.dtype)[None, None].expand(
         c, 1, k, k).contiguous()
     return F.conv2d(x, w, padding=k // 2, groups=c)
 
 
 def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
          size_average: bool = True) -> torch.Tensor:
-    img1, img2 = img1.float(), img2.float()
+    dt = torch.promote_types(img1.dtype, torch.float32)   # fp32 or fp64
+    img1, img2 = img1.to(dt), img2.to(dt)
     w2 = _window(window_size)
     with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                     deterministic=True, allow_tf32=False):
