@@ -86,6 +86,47 @@ seconds:
      load_model, encodes and decodes one image through the scan codec's
      window profile with 0 symbol mismatches and 2 x 12 x nsteps window
      kernel launches.
+ 14. bf16_codec: the flagship model with transform_dtype="bfloat16"
+     (with_transform_dtype) encodes and decodes the smooth image through
+     the window profile: 0 symbol mismatches, exactly 2 x 12 x nsteps
+     window launches and no fused one, the header as phase 5's; the
+     bytes, sha256, and (information) how many latents differ from the
+     fp32 transforms'; the analysis and the synthesis transform timed
+     apart in both dtypes (median of 3 after a warm-up);
+ 15. fanout: ShardedScanCodec with two replicas on cuda:0, each on its
+     own CUDA stream, in the window and the fused profile: replica 0
+     encodes a second image byte-identical to the B=1 codec, the B=1
+     codec decodes that stream (t_one_stream_s), and the two replicas
+     decode it together with phase 5's (or 6's) B=1 stream, bit for bit
+     (t_two_streams_s; the names of the JAX package's SCAN_FANOUT line);
+ 16. dp_train: two gloo ranks sharing cuda:0 (NCCL refuses two ranks of
+     one communicator on one device, phase 17), each with micro-batch 2
+     of four flagship 512x1024 images, one E/D macro-step of
+     make_train_step with the group under deterministic algorithms: the
+     averaged gradient must be bit for bit the mean of the two ranks' own
+     gradients, and within a relative L2 error of 1e-4 per tensor of one
+     process with micro-batch 4 (train_parity's elementwise form, rtol
+     1e-4 and 1e-6 x max|g|, reported beside it with its worst ratio,
+     and how many latents the convs of 64 tiles quantize otherwise); per
+     rank the seconds of a second, warm step in the default mode and the
+     peak memory; then, in rank 0 alone, an NCCL group of one rank
+     against no group, an E/D and an entropy macro-step at 128x256:
+     every parameter, count and Adam tensor bit-equal;
+ 17. band: two gloo ranks sharing cuda:0, 8 of the 16 bands each, the
+     flagship weights and one 512x1024 image: the halo encode's and the
+     all-gather encode's latents against the single-process encode's
+     (mismatch counts, 0 required; the float codes' worst difference),
+     the halo decode's max abs difference, band_sharded_loss_grads
+     against the single-process _loss_terms gradients as in phase 16 (a
+     relative L2 error of 1e-4 per tensor; the worst element reported),
+     one make_band_train_step step
+     with every loss finite (deterministic algorithms throughout); per
+     rank the seconds of each, the peak memory, and the halo bytes per
+     pad call; and what NCCL said when a child, started beside phase
+     12, asked it for two ranks on cuda:0;
+ 18. dcp: phase 11's train state through save_params_dcp and
+     load_params_dcp into a fresh state: parameters, count, both Adam
+     states and the step bit-equal.
 
 With --profile, one more encode of the same plane per profile runs under
 torch.profiler and a "profile" line gives its kernels by device time;
@@ -565,20 +606,7 @@ def train_parity_phase() -> None:
             res[dev] = _grads(model, torch.as_tensor(x).to(dev, dtype), cfg,
                               geom, lw)
         (lc, gc), (lg, gg) = res["cpu"], res["cuda"]
-        worst = {"ratio": 0.0}
-        for name, want in gc.items():
-            got = gg[name]
-            tol = rel * float(want.abs().max()) + 1e-4 * want.abs()
-            err = (got - want).abs()
-            ratio = torch.where(tol > 0, err / tol.clamp_min(1e-300),
-                                torch.where(err > 0, torch.inf, 0.0))
-            i = int(ratio.argmax())
-            if float(ratio.reshape(-1)[i]) >= worst["ratio"]:
-                worst = {"ratio": float(ratio.reshape(-1)[i]),
-                         "tensor": name, "index": i,
-                         "card": float(got.reshape(-1)[i]),
-                         "cpu": float(want.reshape(-1)[i]),
-                         "max_abs_g": float(want.abs().max())}
+        worst = _worst_ratio(gg, gc, rel)       # got: the card's
         key = str(dtype).split(".")[-1]
         report[key] = {"loss_card": lg, "loss_cpu": lc,
                        "atol_over_max_g": rel, "rtol": 1e-4,
@@ -626,7 +654,8 @@ def _write_npy_images(d: str, seeds, hw) -> list:
 
 
 def train_phase(tmp: str):
-    """Phase 11; returns the save directory of the run."""
+    """Phase 11; returns the save directory of the run and the train state
+    after its timed steps."""
     import numpy as np
     import torch
     from pseudocylindrical_convolution_torch.parallel.train import (
@@ -754,7 +783,7 @@ def train_phase(tmp: str):
          rate=rec["rate"], phases=rec["phase"], files=saved,
          step_timing=timing,
          step_peak_bytes=torch.cuda.max_memory_allocated())
-    return save
+    return save, state
 
 
 def train_profile(step, state, macro, train_ent: bool, timed: dict):
@@ -932,6 +961,633 @@ def train_codec_phase(save: str, wk) -> None:
                              f"{2 * 12 * nsteps})")
 
 
+# ---------------------------------------------------------------------------
+# Phases 14-18: bf16 transforms, fan-out, data-parallel and band-parallel
+# training, distributed checkpoints
+# ---------------------------------------------------------------------------
+
+NCCL_PAIR_CHILD = "--nccl-pair-child"
+RANK_TIMEOUT_S = 300
+
+
+def _median_s(fn, reps: int = 3) -> float:
+    """Median wall seconds of fn() after one warm-up, each run ending in a
+    device synchronise."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    secs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return statistics.median(secs)
+
+
+def bf16_codec_phase(model, geom, x, ref, wk, fk, container) -> None:
+    """Phase 14: the flagship model with bf16 transforms through the
+    window profile."""
+    import numpy as np
+    import torch
+    from pseudocylindrical_convolution_torch.codec import wavefront_scan
+    from pseudocylindrical_convolution_torch.models.cmpnet import (
+        with_transform_dtype)
+    from pseudocylindrical_convolution_torch.ops.slice import sphere_slice
+    planes32, valid, hdr32, nsteps = ref
+    t0 = time.time()
+    bmodel = with_transform_dtype(model, "bfloat16")
+    H, W = x.shape[2:]
+    with tempfile.TemporaryDirectory() as tmp:
+        fn = os.path.join(tmp, "img.bin")
+        wk.launches = fk.launches = 0           # the bf16 path starts here
+        (size,), planes = wavefront_scan.scan_encode_images(
+            bmodel, [x], geom, [fn], device="cuda", return_planes=True)
+        rec, dplanes = wavefront_scan.scan_decode_images(
+            bmodel, geom, [fn], (H, W), device="cuda", return_planes=True)
+        torch.cuda.synchronize()
+        launches, stray = wk.launches, fk.launches   # ... and ends here
+        hdr = container.read_stream(fn)
+        digest = sha256_of(fn)
+    nbad = int(((dplanes != planes) & valid[None]).sum())
+    keys = ("mode", "flags", "flags2", "lanes", "batch", "npart", "h", "w")
+    header_same = all(hdr[k] == hdr32[k] for k in keys)
+    rec = rec.float().cpu().numpy()
+    # the transforms alone, each dtype, on the same image and latents
+    xt = torch.as_tensor(x, device="cuda")
+    tiles = sphere_slice(xt, geom)
+    times = {}
+    with torch.no_grad():
+        code = model.encoder(tiles, geom)
+        for name, dt in (("float32", None), ("bfloat16", torch.bfloat16)):
+            times[name] = {
+                "analysis_s": _median_s(lambda: model.encoder(tiles, geom,
+                                                              dt)),
+                "synthesis_s": _median_s(lambda: model.decoder(code, geom,
+                                                               dt))}
+    emit("bf16_codec", t0, transform_dtype="bfloat16", bytes=size,
+         sha256=digest, bpp=size * 8 / (H * W),
+         psnr_db=10 * math.log10(1.0 / max(float(np.mean((rec - x) ** 2)),
+                                           1e-12)),
+         symbol_mismatches=nbad, window_launches=launches,
+         fused_launches=stray, header_as_fp32=header_same,
+         latents_differing_from_fp32=int(((planes != planes32)
+                                          & valid[None]).sum()),
+         latents=int(valid.sum()), transform_seconds=times,
+         nvidia_smi=nvidia_smi())
+    if (nbad or launches != 2 * 12 * nsteps or stray or not header_same
+            or not np.isfinite(rec).all()):
+        raise AssertionError(f"bf16_codec: {nbad} symbol mismatches, "
+                             f"{launches} window launches (expected "
+                             f"{2 * 12 * nsteps}), {stray} fused, header "
+                             f"{hdr} against {hdr32}")
+
+
+def fanout_phase(model, geom, x, planes, b1_streams, wk, fk) -> None:
+    """Phase 15: ShardedScanCodec, two replicas on cuda:0, both profiles.
+
+    ``b1_streams``: per profile, phases 5 and 6's B=1 stream of the
+    smooth image (``planes``). A second image is encoded by replica 0
+    (byte-identical to the B=1 codec's encode of it); the B=1 codec
+    decodes that stream (t_one_stream_s), and the two replicas decode
+    the B=1 stream and the replica's together (t_two_streams_s). The
+    CPU tests encode on every replica (tests/test_torch_fanout.py)."""
+    import numpy as np
+    import torch
+    from pseudocylindrical_convolution_torch.codec import wavefront_scan
+    from pseudocylindrical_convolution_torch.codec.pipeline import (
+        encode_latents_plane)
+    t0 = time.time()
+    cfg = model.cfg
+    h, w = planes.shape[3:]
+    lanes = wavefront_scan.auto_lanes(geom, h, w, cfg.ngroup)
+    with torch.no_grad():
+        second = encode_latents_plane(model, torch.as_tensor(
+            smooth_image(1, x.shape[2:]), device="cuda"), geom).cpu().numpy()
+    two = np.concatenate([planes, second])
+    out = {}
+    for mode in ("window", "fused"):
+        codec = wavefront_scan.get_scan_codec(
+            cfg, geom, h, w, 1, lanes, device="cuda",
+            window_mode=mode).prepare(model.ent)
+        sharded = wavefront_scan.ShardedScanCodec(codec, ["cuda:0"] * 2)
+        (rep,) = sharded.encode_planes(second)
+        (b1,) = codec.encode_planes(second)
+        same_bytes = rep[0] == b1[0] and np.array_equal(rep[1], b1[1])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        back = codec.decode_streams([rep])
+        t_one = time.perf_counter() - t1
+        wk.launches = fk.launches = 0
+        t1 = time.perf_counter()
+        got = sharded.decode_streams([b1_streams[mode], rep])
+        t_two = time.perf_counter() - t1
+        launches = {"window": wk.launches, "fused": fk.launches}
+        out[mode] = {"scan_fanout_n": 2, "t_one_stream_s": t_one,
+                     "t_two_streams_s": t_two,
+                     "fanout_ratio": 2 * t_one / t_two,
+                     "replicas_decode_b1_and_replica_streams": bool(
+                         np.array_equal(got, two)),
+                     "b1_decodes_replica_stream": bool(
+                         np.array_equal(back[0], two[1])),
+                     "replica_stream_byte_identical": bool(same_bytes),
+                     "launches_two_streams": launches}
+        if not (out[mode]["replicas_decode_b1_and_replica_streams"]
+                and out[mode]["b1_decodes_replica_stream"] and same_bytes):
+            raise AssertionError(f"fanout: {mode} profile {out[mode]}")
+        del sharded
+    emit("fanout", t0, replicas=["cuda:0", "cuda:0"], profiles=out,
+         nvidia_smi=nvidia_smi())
+
+
+def _dp_batch(n: int, hw=(512, 1024)):
+    import numpy as np
+    return np.stack([smooth_image(400 + i, hw)[0] for i in range(n)])[None]
+
+
+def _capture_step(state, step, batch):
+    """One step; the gradients the optimizer is handed, as CPU tensors."""
+    got = {}
+    names = {id(p): n for n, p in state.model.named_parameters()}
+
+    def hook(opt, args, kwargs):
+        for g in opt.param_groups:
+            for p in g["params"]:
+                got[names[id(p)]] = p.grad.detach().cpu().clone()
+
+    hs = [o.register_step_pre_hook(hook)
+          for o in (state.opt_other, state.opt_ent)]
+    try:
+        state, m = step(state, batch)
+    finally:
+        for hd in hs:
+            hd.remove()
+    return state, got, m
+
+
+def _worst_ratio(got: dict, want: dict, rel: float = 1e-6,
+                 rtol: float = 1e-4) -> dict:
+    """The worst |got - want| / (rtol |want| + rel max|want|) over every
+    tensor, and where it is."""
+    import torch
+    worst = {"ratio": 0.0}
+    for name, w in want.items():
+        g = got[name].double()
+        w = w.double()
+        tol = rel * float(w.abs().max()) + rtol * w.abs()
+        err = (g - w).abs()
+        ratio = torch.where(tol > 0, err / tol.clamp_min(1e-300),
+                            torch.where(err > 0, torch.inf, 0.0))
+        i = int(ratio.argmax())
+        r = float(ratio.reshape(-1)[i])
+        if r >= worst["ratio"]:
+            worst = {"ratio": r, "tensor": name, "index": i,
+                     "got": float(g.reshape(-1)[i]),
+                     "want": float(w.reshape(-1)[i]),
+                     "max_abs_g": float(w.abs().max())}
+    return worst
+
+
+def _worst_rel_l2(got: dict, want: dict) -> dict:
+    """The worst ||got - want|| / ||want|| of a tensor, and which."""
+    worst = {"rel_l2": 0.0}
+    for name, w in want.items():
+        w = w.double()
+        r = float((got[name].double() - w).norm() / w.norm().clamp_min(
+            1e-300))
+        if r >= worst["rel_l2"]:
+            worst = {"rel_l2": r, "tensor": name}
+    return worst
+
+
+def _join_gloo(rank: int, world: int, init: str):
+    import datetime
+    import torch
+    from pseudocylindrical_convolution_torch.parallel.mesh import make_mesh
+    torch.cuda.set_device(0)
+    return make_mesh(world, "gloo", rank, init,
+                     timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+
+
+def _deterministic(on: bool = True) -> None:
+    """Deterministic algorithms in a rank process (the training ops have
+    them; the codec's CUDA cumsum has none and only warns). cuBLAS reads
+    its workspace setting when CUDA first makes a handle, so the first
+    call must come before any work on the card."""
+    import torch
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(on, warn_only=True)
+
+
+def dp_rank(rank: int, world: int, init: str, out: str) -> None:
+    """Phase 16, one gloo rank on cuda:0: one E/D macro-step (acc 1) on
+    its half of a micro-batch of 4 flagship images under deterministic
+    algorithms, its gradient before and after the all-reduce kept; then
+    a second step timed in the default mode. Rank 0 then checks the
+    average against the two ranks' own gradients, and against one
+    process (``_dp_references``), and runs an NCCL group of one rank
+    against no group (``_world_of_one``)."""
+    import pickle
+    import torch
+    import torch.distributed as dist
+    from pseudocylindrical_convolution_torch.models.cmpnet import (
+        CMPNetConfig)
+    from pseudocylindrical_convolution_torch.parallel.mesh import (
+        shard_train_step)
+    from pseudocylindrical_convolution_torch.parallel.train import (
+        LossWeights, create_train_state, make_train_step)
+    from pseudocylindrical_convolution_torch.utils.checkpoint import (
+        load_model)
+    from pseudocylindrical_convolution_torch.utils.device import (
+        pin_numerics)
+    _deterministic()
+    group = _join_gloo(rank, world, init)
+    try:
+        pin_numerics()
+        # every rank takes part in making the NCCL group of rank 0 alone
+        solo = dist.new_group([0], backend="nccl")
+        cfg = CMPNetConfig(valid_dim=192)
+        model = load_model(CHECKPOINT, cfg, "cuda").requires_grad_(True)
+        state = create_train_state(model, 1e-4)
+        step = shard_train_step(make_train_step(
+            cfg, cfg.geometry(), LossWeights(clip=1e9), acc_batch=1,
+            group=group), group, False)
+        batch = torch.as_tensor(_dp_batch(4), device="cuda")
+        reduced = []                        # (before, after) of each
+        all_reduce = dist.all_reduce
+
+        def recorded(t, *a, **kw):
+            before = t.detach().cpu().clone()
+            work = all_reduce(t, *a, **kw)
+            reduced.append((before, t.detach().cpu().clone()))
+            return work
+
+        dist.all_reduce = recorded
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            state, grads, m = _capture_step(state, step, batch)
+        finally:
+            dist.all_reduce = all_reduce
+        # the gradients' all-reduce is the largest; its local halves
+        local, summed = max(reduced, key=lambda r: r[0].numel())
+        parts = [torch.empty_like(local) for _ in range(world)]
+        dist.all_gather(parts, local, group=group)
+        _deterministic(False)
+        torch.cuda.synchronize()
+        dist.barrier(group)
+        t0 = time.perf_counter()            # a second step, warm
+        step(state, batch)
+        torch.cuda.synchronize()
+        res = {"rank": rank, "s_per_macro_step": time.perf_counter() - t0,
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "loss": float(m["loss"])}
+        del state, model, batch
+        torch.cuda.empty_cache()
+        dist.barrier(group)                 # the card is rank 0's now
+        if rank == 0:
+            _deterministic()
+            res["average_is_the_ranks_mean"] = bool(torch.equal(
+                summed, sum(parts)) and torch.equal(
+                    summed / world, torch.cat([g.reshape(-1)
+                                               for g in grads.values()])))
+            res["world_of_one"] = _world_of_one(solo)
+            res["one_process"] = _dp_references(grads)
+        with open(f"{out}.{rank}", "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def nccl_pair_rank(rank: int, world: int, init: str, out: str) -> None:
+    """Two NCCL ranks of one communicator on cuda:0: what NCCL says to a
+    first all_reduce (NCCL refuses two ranks on one device, which is why
+    phases 16 and 17 join their ranks with gloo)."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from pseudocylindrical_convolution_torch.parallel.mesh import make_mesh
+    torch.cuda.set_device(0)
+    make_mesh(world, "nccl", rank, init,
+              timeout=datetime.timedelta(seconds=60))
+    try:
+        t = torch.ones(1, device="cuda")
+        try:
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+            said = f"all_reduce gave {t.item()}"
+        except RuntimeError as e:           # the probe reports the refusal
+            said = f"{type(e).__name__}: {e}"
+        with open(f"{out}.{rank}", "w") as f:
+            f.write(said)
+    finally:
+        dist.destroy_process_group()
+
+
+def _world_of_one(group) -> dict:
+    """An NCCL group of one rank against no group: an E/D and an entropy
+    macro-step each at 128x256 from the flagship weights, under
+    deterministic algorithms; every parameter, count and Adam tensor
+    compared bit for bit."""
+    import torch
+    import torch.distributed as dist
+    from pseudocylindrical_convolution_torch.models.cmpnet import (
+        CMPNetConfig)
+    from pseudocylindrical_convolution_torch.parallel.mesh import (
+        shard_train_step)
+    from pseudocylindrical_convolution_torch.parallel.train import (
+        LossWeights, create_train_state, make_train_step)
+    from pseudocylindrical_convolution_torch.utils.checkpoint import (
+        load_model)
+    t0 = time.time()
+    cfg = CMPNetConfig(valid_dim=192)
+    batch = torch.as_tensor(_dp_batch(2, (128, 256)), device="cuda")
+    runs = []
+    for g in (group, None):
+        model = load_model(CHECKPOINT, cfg, "cuda").requires_grad_(True)
+        state = create_train_state(model, 1e-4)
+        fn = make_train_step(cfg, cfg.geometry(), LossWeights(),
+                             acc_batch=1, group=g)
+        for train_ent in (False, True):
+            step = (shard_train_step(fn, g, train_ent) if g is not None
+                    else (lambda s, b, e=train_ent: fn(s, b, e)))
+            state, _ = step(state, batch)
+        runs.append(state)
+    a, b = runs
+    pairs = list(zip(a.model.state_dict().values(),
+                     b.model.state_dict().values()))
+    pairs.append((a.count, b.count))
+    for oa, ob in ((a.opt_other, b.opt_other), (a.opt_ent, b.opt_ent)):
+        sa, sb = oa.state_dict()["state"], ob.state_dict()["state"]
+        pairs += [(sa[k][kk], sb[k][kk]) for k in sa for kk in sa[k]]
+    return {"backend": dist.get_backend(group),
+            "world": dist.get_world_size(group), "tensors": len(pairs),
+            "n_differing": sum(not torch.equal(x, y) for x, y in pairs),
+            "steps": [a.step, b.step],
+            "seconds": round(time.time() - t0, 3)}
+
+
+def nccl_pair_child() -> int:
+    """Phase 17's probe, in its own process: two NCCL ranks on cuda:0;
+    one JSON line with what NCCL said to rank 0."""
+    from pseudocylindrical_convolution_torch.parallel.mesh import (
+        free_port, spawn_ranks)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "nccl")
+        spawn_ranks(nccl_pair_rank, 2, (2, f"tcp://localhost:{free_port()}",
+                                        out), timeout=120)
+        with open(f"{out}.0") as f:
+            print(json.dumps({"nccl_two_ranks_one_card": f.read()[-600:]}),
+                  flush=True)
+    return 0
+
+
+def dp_train_phase(tmp: str) -> None:
+    """Phase 16: two gloo ranks sharing cuda:0 against one process, and
+    an NCCL group of one rank against no group (``dp_rank``)."""
+    import pickle
+    from pseudocylindrical_convolution_torch.parallel.mesh import (
+        free_port, spawn_ranks)
+    t0 = time.time()
+    out = os.path.join(tmp, "dp")
+    spawn_ranks(dp_rank, 2, (2, f"tcp://localhost:{free_port()}", out),
+                timeout=RANK_TIMEOUT_S)
+    ranks = []
+    for r in range(2):
+        with open(f"{out}.{r}", "rb") as f:
+            ranks.append(pickle.load(f))
+    one = ranks[0].pop("one_process")
+    single = ranks[0].pop("world_of_one")
+    emit("dp_train", t0, world=2, backend="gloo", device="cuda:0 (shared)",
+         micro_batch_per_rank=2, hw=[512, 1024], ranks=ranks,
+         one_process=one, world_of_one=single, nvidia_smi=nvidia_smi())
+    if (not ranks[0]["average_is_the_ranks_mean"]
+            or one["worst_rel_l2"]["rel_l2"] > 1e-4
+            or single["n_differing"] or single["backend"] != "nccl"):
+        raise AssertionError(f"dp_train: {ranks[0]}, {one}, {single}")
+
+
+def _child_json(child, what: str, err) -> dict:
+    """The last stdout line of a child process, as JSON; the child is
+    ended if it outlives 600 s, and a failure raises with the end of its
+    error file ``err``."""
+    try:
+        stdout, _ = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+    if child.returncode != 0:
+        err.seek(0)
+        raise AssertionError(f"{what} failed ({child.returncode}): "
+                             f"{err.read()[-3000:]}")
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+def _dp_references(got: dict) -> dict:
+    """Phase 16's one process with micro-batch 4 on the ranks' four
+    images, against the ranks' average ``got``: the worst relative L2
+    error of a tensor (the check) and the worst element in train_parity's
+    form (reported). When two ranks share the card, the library picks
+    its conv algorithms with less memory free than one process has, so
+    sums run in other orders; and the convs of 64 tiles may round
+    otherwise than those of 32, which the latents would show."""
+    import torch
+    from pseudocylindrical_convolution_torch.models.cmpnet import (
+        CMPNetConfig, cmpnet_encode_latents)
+    from pseudocylindrical_convolution_torch.parallel.train import (
+        LossWeights, create_train_state, make_train_step)
+    from pseudocylindrical_convolution_torch.utils.checkpoint import (
+        load_model)
+    cfg = CMPNetConfig(valid_dim=192)
+    geom = cfg.geometry()
+    batch = torch.as_tensor(_dp_batch(4), device="cuda")
+    model = load_model(CHECKPOINT, cfg, "cuda").requires_grad_(True)
+    state = create_train_state(model, 1e-4)
+    fn = make_train_step(cfg, geom, LossWeights(clip=1e9), acc_batch=1)
+    torch.cuda.reset_peak_memory_stats()
+    _, want, m = _capture_step(state, lambda s, b: fn(s, b, False), batch)
+    one = {"micro_batch": 4, "peak_bytes": torch.cuda.max_memory_allocated(),
+           "loss": float(m["loss"]), "tensors": len(want),
+           "worst_rel_l2": _worst_rel_l2(got, want),
+           "worst_element": _worst_ratio(got, want)}
+    del state
+    with torch.no_grad():
+        whole = cmpnet_encode_latents(model, batch[0], geom)
+        halves = torch.cat([cmpnet_encode_latents(model, batch[0, i:i + 2],
+                                                  geom) for i in (0, 2)])
+    one["latents_differing_from_micro_batch_2"] = int(
+        (whole != halves).sum())
+    return one
+
+
+def band_rank(rank: int, world: int, init: str, out: str) -> None:
+    """Phase 17, one gloo rank on cuda:0 holding 8 of the 16 bands of one
+    flagship image."""
+    import pickle
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from pseudocylindrical_convolution_torch.models.cmpnet import (
+        CMPNetConfig, cmpnet_decode_latents, cmpnet_encode_latents)
+    from pseudocylindrical_convolution_torch.ops import bandctx
+    from pseudocylindrical_convolution_torch.ops.slice import sphere_slice
+    from pseudocylindrical_convolution_torch.parallel import spatial
+    from pseudocylindrical_convolution_torch.parallel.train import (
+        LossWeights, _loss_terms, create_train_state)
+    from pseudocylindrical_convolution_torch.utils.checkpoint import (
+        load_model)
+    _deterministic()
+    group = _join_gloo(rank, world, init)
+    try:
+        cfg = CMPNetConfig(valid_dim=192)
+        geom = cfg.geometry()
+        model = load_model(CHECKPOINT, cfg, "cuda")
+        x = torch.as_tensor(smooth_image(0), device="cuda")
+        sent = []
+        ring = bandctx._ring_exchange
+
+        def counted(fwd, bwd, g):
+            sent.append(fwd.numel() * fwd.element_size()
+                        + bwd.numel() * bwd.element_size())
+            return ring(fwd, bwd, g)
+
+        bandctx._ring_exchange = counted
+        res = {"rank": rank, "seconds": {}}
+
+        def timed(name, fn, *a):
+            torch.cuda.synchronize()
+            dist.barrier(group)             # both ranks start together
+            t0 = time.perf_counter()
+            r = fn(*a)
+            torch.cuda.synchronize()
+            res["seconds"][name] = time.perf_counter() - t0
+            return r
+
+        spatial.band_sharded_encode_halo(model, geom, group)(x)   # warm-up
+        sent.clear()
+        torch.cuda.reset_peak_memory_stats()
+        lat = timed("encode_halo", spatial.band_sharded_encode_halo(
+            model, geom, group), x)
+        res["halo"] = {"pad_calls": len(sent), "bytes_sent": sum(sent),
+                       "bytes_per_pad_call": sum(sent) / max(1, len(sent))}
+        lat2 = timed("encode_gathered", spatial.band_sharded_encode(
+            model, geom, group), x)
+        with torch.no_grad():       # the float codes before quantizing
+            tiles = sphere_slice(x, geom)
+            nl = geom.npart // world
+            code = bandctx.all_gather_bands(model.encoder(
+                tiles[rank * nl:(rank + 1) * nl], bandctx.LocalBands(
+                    geom, group)), group)
+        hcode = lat.clone()         # the same on every rank (all-gathered)
+        rec = timed("decode_halo", spatial.band_sharded_decode_halo(
+            model, geom, group), hcode)
+        model.requires_grad_(True)
+        lw = LossWeights()
+        (loss, _), grads = timed("loss_grads", spatial.band_sharded_loss_grads(
+            model, geom, lw, group), x)
+        res["loss"] = loss.item()
+        res["peak_bytes_band"] = torch.cuda.max_memory_allocated()
+        if rank == 0:
+            # the single-process results on the same card, rank 0 only
+            grads = {n: g.detach().cpu().clone() for n, g in grads.items()}
+            for p in model.parameters():
+                p.grad = None
+            with torch.no_grad():
+                ref = cmpnet_encode_latents(model, x, geom)
+                ref_rec = cmpnet_decode_latents(model, hcode, geom)
+                res["code_max_abs_diff"] = float(
+                    (code - model.encoder(tiles, geom)).abs().max())
+            res["latent_mismatches_halo"] = int((lat != ref).sum())
+            res["latent_mismatches_gathered"] = int((lat2 != ref).sum())
+            res["latents"] = int(ref.numel())
+            res["decode_max_abs_diff"] = float((rec - ref_rec).abs().max())
+            ref_loss, _ = _loss_terms(model, x, cfg, geom, lw)
+            ref_loss.backward()
+            res["ref_loss"] = ref_loss.item()
+            want = {n: p.grad.detach().cpu()
+                    for n, p in model.named_parameters()}
+            res["grads_vs_one_process"] = {
+                "worst_rel_l2": _worst_rel_l2(grads, want),
+                "worst_element": _worst_ratio(grads, want)}
+        del grads
+        for p in model.parameters():
+            p.grad = None
+        state = create_train_state(model, 1e-4)
+        step = spatial.make_band_train_step(geom, lw, group)
+        torch.cuda.reset_peak_memory_stats()
+        state, m = timed("train_step", step, state, x, False)
+        res["peak_bytes_train_step"] = torch.cuda.max_memory_allocated()
+        res["step_losses"] = {k: float(v) for k, v in m.items()}
+        res["finite"] = bool(np.isfinite(list(res["step_losses"].values()))
+                             .all() and torch.isfinite(rec).all())
+        with open(f"{out}.{rank}", "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def band_phase(tmp: str, probe, probe_err) -> None:
+    """Phase 17: two gloo ranks sharing cuda:0, 8 bands each; ``probe``,
+    the NCCL probe's process (``nccl_pair_child``), started beside phase
+    12 so that it costs no time here, is read at the end."""
+    import pickle
+    from pseudocylindrical_convolution_torch.parallel.mesh import (
+        free_port, spawn_ranks)
+    t0 = time.time()
+    out = os.path.join(tmp, "band")
+    spawn_ranks(band_rank, 2, (2, f"tcp://localhost:{free_port()}", out),
+                timeout=RANK_TIMEOUT_S)
+    said = _child_json(probe, "band: the NCCL probe", probe_err)
+    ranks = []
+    for r in range(2):
+        with open(f"{out}.{r}", "rb") as f:
+            ranks.append(pickle.load(f))
+    emit("band", t0, world=2, backend="gloo", device="cuda:0 (shared)",
+         bands_per_rank=8, hw=[512, 1024], ranks=ranks, **said,
+         nvidia_smi=nvidia_smi())
+    r0 = ranks[0]
+    if (r0["latent_mismatches_halo"] or r0["latent_mismatches_gathered"]
+            or r0["grads_vs_one_process"]["worst_rel_l2"]["rel_l2"] > 1e-4
+            or not math.isclose(r0["loss"], r0["ref_loss"], rel_tol=1e-4)
+            or not all(r["finite"] for r in ranks)
+            or ranks[1]["loss"] != r0["loss"]):
+        raise AssertionError("band: the ranks leave the contract")
+
+
+def dcp_phase(state, tmp: str) -> None:
+    """Phase 18: phase 11's trained state through save_params_dcp and
+    load_params_dcp into a fresh state; every tensor bit-equal."""
+    import torch
+    from pseudocylindrical_convolution_torch.parallel.train import (
+        create_train_state)
+    from pseudocylindrical_convolution_torch.utils.checkpoint import (
+        load_model, load_params_dcp, save_params_dcp)
+    t0 = time.time()
+    path = os.path.join(tmp, "dcp")
+    save_params_dcp(state, path)
+    again = create_train_state(load_model(
+        CHECKPOINT, state.model.cfg, "cuda").requires_grad_(True), 1e-4)
+    load_params_dcp(path, again)
+    pairs = list(zip(state.model.state_dict().values(),
+                     again.model.state_dict().values()))
+    pairs.append((state.count, again.count))
+    keys_equal = True
+    for oa, ob in ((state.opt_other, again.opt_other),
+                   (state.opt_ent, again.opt_ent)):
+        sa, sb = oa.state_dict()["state"], ob.state_dict()["state"]
+        keys_equal &= sa.keys() == sb.keys()
+        pairs += [(sa[k][kk], sb[k].get(kk)) for k in sa for kk in sa[k]]
+    differ = sum(b is None or not torch.equal(a, b) for a, b in pairs)
+    nbytes = sum(os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path))
+    emit("dcp", t0, tensors=len(pairs), n_differing=differ,
+         step=[state.step, again.step], bytes=nbytes,
+         files=sorted(os.listdir(path)))
+    if differ or not keys_equal or again.step != state.step:
+        raise AssertionError(f"dcp: {differ} tensors differ after the "
+                             f"roundtrip")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1007,6 +1663,7 @@ def main() -> int:
         launches = wk.launches                  # ... and ends here
         stray = fk.launches
         digest = sha256_of(fn)
+        hdr32 = container.read_stream(fn)
     lanes = wavefront_scan.auto_lanes(geom, h, w, cfg.ngroup)
     codec = wavefront_scan.get_scan_codec(cfg, geom, h, w, 1, lanes)
     valid = np.zeros((geom.npart, cfg.ngroup, h, w), bool)
@@ -1048,7 +1705,8 @@ def main() -> int:
         torch.cuda.synchronize()
         f_dec = time.time() - t0
         flaunches, stray = fk.launches, wk.launches   # ... and ends here
-        flags2 = container.read_stream(fn)["flags2"]
+        fhdr = container.read_stream(fn)
+        flags2 = fhdr["flags2"]
         fdigest = sha256_of(fn)
     fbad = int(((fplanes != planes) & valid[None]).sum())
     if fbad:
@@ -1118,11 +1776,37 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_parity_phase()
     with tempfile.TemporaryDirectory() as tmp:
-        save = train_phase(tmp)
+        save, state = train_phase(tmp)
         gc.collect()
         torch.cuda.empty_cache()
-        train_resume_phase()
-        train_codec_phase(save, wk)
+        # phase 17's NCCL probe runs beside phase 12's child; its errors
+        # go to a file, which no pipe can fill
+        with open(os.path.join(tmp, "probe.err"), "w+") as err:
+            probe = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 NCCL_PAIR_CHILD], text=True, stdout=subprocess.PIPE,
+                stderr=err)
+            try:
+                train_resume_phase()
+                train_codec_phase(save, wk)
+                model = load_model(CHECKPOINT, cfg, device="cuda")
+                bf16_codec_phase(model, geom, x,
+                                 (planes, valid, hdr32, nsteps), wk, fk,
+                                 container)
+                fanout_phase(model, geom, x, planes, {
+                    "window": (hdr32["payload"], hdr32["lane_nbytes"]),
+                    "fused": (fhdr["payload"], fhdr["lane_nbytes"])},
+                    wk, fk)
+                del model
+                gc.collect()
+                torch.cuda.empty_cache()
+                dp_train_phase(tmp)
+                band_phase(tmp, probe, err)
+                dcp_phase(state, tmp)
+            finally:
+                if probe.poll() is None:
+                    probe.kill()
+                    probe.communicate()
     print(json.dumps({"kernels": [entry, fentry]}), flush=True)
     print(smi, flush=True)
     print(f"wall {time.time() - T_START:.1f} s", file=sys.stderr)
@@ -1133,5 +1817,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(train_resume_child() if RESUME_CHILD in sys.argv[1:]
+    if RESUME_CHILD in sys.argv[1:]:
+        sys.exit(train_resume_child())
+    sys.exit(nccl_pair_child() if NCCL_PAIR_CHILD in sys.argv[1:]
              else main())

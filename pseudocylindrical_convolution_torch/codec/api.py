@@ -4,9 +4,10 @@ package's ``codec/api.py``.
 
 The functional modules (codec/wavefront_scan.py, codec/pipeline.py,
 codec/incremental.py) are the primary interfaces; these wrappers bundle a
-``CMPNet``, its geometry and a device. Encoding names the mode ("scan" is
-the default, as in the CLI); decoding is self-describing: the stream
-header selects the decoder.
+``CMPNet``, its geometry, a device and the transform dtype
+(``transform_dtype``, as in the JAX package's wrappers; None keeps the
+model's own). Encoding names the mode ("scan" is the default, as in the
+CLI); decoding is self-describing: the stream header selects the decoder.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from pseudocylindrical_convolution_torch.codec.pipeline import (
     decode_image, encode_images)
 from pseudocylindrical_convolution_torch.codec.wavefront_scan import (
     scan_decode_images, scan_encode_images)
-from pseudocylindrical_convolution_torch.models.cmpnet import CMPNet
+from pseudocylindrical_convolution_torch.models.cmpnet import (
+    CMPNet, with_transform_dtype)
 
 MODES = ("scan", "dense", "incremental")
 
@@ -76,9 +78,12 @@ class PseudoEncoder:
     (frontier cells only, step by step)."""
 
     def __init__(self, model: CMPNet, mode: str = "scan", batch: int = 1,
-                 lanes: int | None = None, device="cuda"):
+                 lanes: int | None = None, device="cuda",
+                 transform_dtype: str | None = None):
         if mode not in MODES:
             raise ValueError(f"mode {mode!r} is not one of {MODES}")
+        if transform_dtype is not None:
+            model = with_transform_dtype(model, transform_dtype)
         self.model, self.mode = model, mode
         self.batch, self.lanes, self.device = batch, lanes, device
 
@@ -97,7 +102,10 @@ class PseudoDecoder:
     """Bitstream file(s) -> image(s); the container header picks the mode
     and the image size."""
 
-    def __init__(self, model: CMPNet, device="cuda"):
+    def __init__(self, model: CMPNet, device="cuda",
+                 transform_dtype: str | None = None):
+        if transform_dtype is not None:
+            model = with_transform_dtype(model, transform_dtype)
         self.model, self.device = model, device
 
     def __call__(self, code_name) -> np.ndarray:

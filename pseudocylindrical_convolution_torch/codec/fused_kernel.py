@@ -43,6 +43,7 @@ codec never does.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -65,6 +66,8 @@ WARP = 32
 # Launches of the CUDA kernel (one per ``fused`` call on a CUDA tensor).
 launches = 0
 _lib = None
+# replicas of the scan codec launch from several host threads
+_lock = threading.Lock()
 
 
 def contract(win: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -170,21 +173,26 @@ def fused_tolerance(buf: torch.Tensor, z: int, tabs: WindowTables,
 
 def _load():
     global _lib
-    if _lib is None:
-        path = build_library("fused", ["fused.cu"],
-                             [find_nvcc()] + NVCC_FLAGS,
-                             headers=("window_common.cuh",))
-        lib = ctypes.CDLL(path)
-        for name in ("pc_fused_bf16", "pc_fused_f32"):
-            fn = getattr(lib, name)
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [
-                ctypes.c_void_p]
-        lib.pc_fused_info.restype = ctypes.c_int
-        lib.pc_fused_info.argtypes = [ctypes.c_int] * 7 + [
-            ctypes.POINTER(ctypes.c_int)]
-        _lib = lib
+    with _lock:
+        if _lib is None:
+            _lib = _build()
     return _lib
+
+
+def _build():
+    path = build_library("fused", ["fused.cu"],
+                         [find_nvcc()] + NVCC_FLAGS,
+                         headers=("window_common.cuh",))
+    lib = ctypes.CDLL(path)
+    for name in ("pc_fused_bf16", "pc_fused_f32"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [
+            ctypes.c_void_p]
+    lib.pc_fused_info.restype = ctypes.c_int
+    lib.pc_fused_info.argtypes = [ctypes.c_int] * 7 + [
+        ctypes.POINTER(ctypes.c_int)]
+    return lib
 
 
 INFO_KEYS = ("NB", "groups_per_block", "smem_bytes", "registers",
@@ -249,7 +257,8 @@ def fused_cuda(buf: torch.Tensor, z: int, tabs: WindowTables,
              torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused kernel launch failed: cudaError {err}")
-    launches += 1
+    with _lock:
+        launches += 1
     return out
 
 

@@ -36,6 +36,8 @@ codec/wavefront.py). Lane sizes are bounded by 16 bits/symbol + 16.
 
 from __future__ import annotations
 
+import concurrent.futures
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -454,6 +456,79 @@ class ScanWavefrontCodec:
         plane = self.decode_streams_device(streams)[:len(streams)]
         return plane.cpu().numpy().reshape(len(streams), self.npart, self.G,
                                            self.h, self.w)
+
+
+# ---------------------------------------------------------------------------
+# Fan-out: one stream per replica
+# ---------------------------------------------------------------------------
+
+
+class ShardedScanCodec:
+    """Decode (or teacher-force encode) D independent streams at once, one
+    per replica of a B=1 codec (the JAX package's ``ShardedScanCodec``).
+
+    ``devices`` names one device per replica; each replica is a
+    ``ScanWavefrontCodec`` of the wrapped codec's geometry and profile
+    (lanes, buffer dtype, ``window`` or ``fused``), prepared on its device
+    with the wrapped codec's entropy weights. Each replica's step loop
+    runs from its own host thread; on the card each runs on its own CUDA
+    stream, so replicas that share one card overlap their launches, and
+    replicas on several cards run side by side. The streams are the B=1
+    profile's (``batch=1`` in the header), so they decode on the B=1 codec
+    and the other way round."""
+
+    def __init__(self, codec: ScanWavefrontCodec, devices):
+        if codec.B != 1:
+            raise ValueError("fan-out shards streams, use a B=1 codec")
+        if codec._weights is None:
+            raise RuntimeError("call codec.prepare(model.ent) first")
+        self.codec = codec
+        self.devices = [torch.device(d) for d in devices]
+        self.D = len(self.devices)
+        self.replicas = [
+            ScanWavefrontCodec(codec.cfg, codec.geom, codec.h, codec.w,
+                               batch=1, lanes=codec.L, cpn=codec.cpn,
+                               num_gaussian=codec.ng, dtype=codec.dtype,
+                               device=d, window_mode=codec.window_mode
+                               ).prepare(codec._prepared_src)
+            for d in self.devices]
+        self._streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+                         for d in self.devices]
+
+    def _fan_out(self, fn, items):
+        """fn(replica, item) for each item on replica i, each from its own
+        thread (on its own CUDA stream); results in item order."""
+        if len(items) > self.D:
+            raise ValueError(f"{len(items)} streams for {self.D} replicas")
+
+        def one(i):
+            s = self._streams[i]
+            if s is None:
+                return fn(self.replicas[i], items[i])
+            # the replica's tensors were made on the device's default
+            # stream: start after them, and hand the result back the same
+            s.wait_stream(torch.cuda.default_stream(s.device))
+            with torch.cuda.device(s.device), torch.cuda.stream(s):
+                out = fn(self.replicas[i], items[i])
+            s.synchronize()
+            return out
+
+        with concurrent.futures.ThreadPoolExecutor(len(items)) as ex:
+            return list(ex.map(one, range(len(items))))
+
+    def decode_streams(self, streams: list) -> np.ndarray:
+        """streams: <= D (payload bytes, lane_nbytes) pairs -> (len(streams),
+        npart, G, h, w) int64 numpy symbol planes."""
+        planes = self._fan_out(lambda r, st: r.decode_streams([st])[0],
+                               list(streams))
+        return np.stack(planes)
+
+    def encode_planes(self, planes) -> list:
+        """planes: (D', npart, G, h, w) symbols, D' <= D. Returns D'
+        (payload bytes, lane_nbytes) pairs in the B=1 stream format."""
+        planes = np.asarray(planes)
+        return self._fan_out(lambda r, p: r.encode_planes(p[None])[0],
+                             list(planes))
 
 
 # ---------------------------------------------------------------------------

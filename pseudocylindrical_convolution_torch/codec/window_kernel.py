@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -58,6 +59,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Launches of the CUDA kernel (one per ``window`` call on a CUDA tensor).
 launches = 0
 _lib = None
+# replicas of the scan codec launch from several host threads
+_lock = threading.Lock()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -281,18 +284,23 @@ def step_table_ptrs(tabs: WindowTables, z: int) -> list[int]:
 
 def _load():
     global _lib
-    if _lib is None:
-        path = build_library("window", ["window.cu"],
-                             [find_nvcc()] + NVCC_FLAGS,
-                             headers=("window_common.cuh",))
-        lib = ctypes.CDLL(path)
-        for name in ("pc_window_bf16", "pc_window_f32"):
-            fn = getattr(lib, name)
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
-                ctypes.c_void_p]
-        _lib = lib
+    with _lock:
+        if _lib is None:
+            _lib = _build()
     return _lib
+
+
+def _build():
+    path = build_library("window", ["window.cu"],
+                         [find_nvcc()] + NVCC_FLAGS,
+                         headers=("window_common.cuh",))
+    lib = ctypes.CDLL(path)
+    for name in ("pc_window_bf16", "pc_window_f32"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+    return lib
 
 
 def window_cuda(buf: torch.Tensor, z: int, tabs: WindowTables
@@ -316,7 +324,8 @@ def window_cuda(buf: torch.Tensor, z: int, tabs: WindowTables
              torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"window kernel launch failed: cudaError {err}")
-    launches += 1
+    with _lock:
+        launches += 1
     return out
 
 

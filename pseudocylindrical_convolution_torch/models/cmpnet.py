@@ -9,6 +9,7 @@ every parameter of one rate point under the JAX tree's key names, so
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import torch
@@ -41,6 +42,20 @@ class CMPNetConfig:
     opt: bool = True
     init: bool = False          # freeze E/D grads while initializing entropy
     top_alpha: float = 1e-4     # mse: 1e-4, ssim: 1e-2 (model_zoo_v2.py:314)
+    # operand dtype of the analysis/synthesis convs and GDN contractions
+    # ("float32" or "bfloat16", accumulating in fp32); the entropy network
+    # always runs fp32 (the CDF bit-exactness contract)
+    transform_dtype: str = "float32"
+
+    @property
+    def tdtype(self):
+        """The transforms' ``dtype`` argument: None (fp32) or bf16."""
+        if self.transform_dtype == "float32":
+            return None
+        if self.transform_dtype == "bfloat16":
+            return torch.bfloat16
+        raise ValueError(f"transform_dtype {self.transform_dtype!r} is not "
+                         f"'float32' or 'bfloat16'")
 
     @property
     def ngroup(self) -> int:
@@ -135,6 +150,18 @@ class CMPNet(nn.Module):
         return self
 
 
+def with_transform_dtype(model: CMPNet, transform_dtype: str) -> CMPNet:
+    """``model`` itself when its config has ``transform_dtype`` already,
+    else a shallow copy that shares every parameter and differs only in
+    that field of its config."""
+    if model.cfg.transform_dtype == transform_dtype:
+        return model
+    other = copy.copy(model)
+    other.cfg = dataclasses.replace(model.cfg,
+                                    transform_dtype=transform_dtype)
+    return other
+
+
 def _code_mask(geom: Geometry, n: int, h: int, w: int,
                device) -> torch.Tensor:
     m = _fill_mask_t(geom, h, w, 0, 0, str(device))   # (npart, h, w)
@@ -154,14 +181,15 @@ def cmpnet_apply(model: CMPNet, x: torch.Tensor, geom: Geometry):
     # the backward of the first strided 1x1 conv on that layout corrupts
     # memory when torch runs it on several threads (torch 2.13, oneDNN
     # 3.12), so the train graph takes them contiguous
-    code = model.encoder(sphere_slice(x, geom).contiguous(), geom)
+    code = model.encoder(sphere_slice(x, geom).contiguous(), geom,
+                         cfg.tdtype)
     qmask = _code_mask(geom, n, code.shape[2], code.shape[3], x.device)
     code_f, code_i, hist = PseudoQuant.apply(code, model.quant.weight, qmask,
                                              cfg.top_alpha)
     # channel stub mask to valid_dim (StubMask, model_zoo_v2.py:315,326-327)
     vm = (torch.arange(cfg.code_channels, device=x.device) < cfg.valid_dim
           ).to(code_f.dtype)[None, :, None, None]
-    tx = sphere_uslice(model.decoder(code_f * vm, geom), geom)
+    tx = sphere_uslice(model.decoder(code_f * vm, geom, cfg.tdtype), geom)
     # entropy branch: Extract(valid_dim) -> Dtow d2w -> -mean -> EntropyNet
     qy = dtow(code_i[:, : cfg.valid_dim], 2, True) - cfg.mean_val
     ent_vec, mask = entropy_net_apply(model.ent, qy, geom, cfg.ngroup,
@@ -178,7 +206,7 @@ def cmpnet_encode_latents(model: CMPNet, x: torch.Tensor,
     tile dims)."""
     cfg = model.cfg
     n = x.shape[0]
-    code = model.encoder(sphere_slice(x, geom), geom)
+    code = model.encoder(sphere_slice(x, geom), geom, cfg.tdtype)
     qmask = _code_mask(geom, n, code.shape[2], code.shape[3], x.device)
     _, code_i = pseudo_quant(code, model.quant.weight, qmask)
     return dtow(code_i[:, : cfg.valid_dim], 2, True)
@@ -197,5 +225,5 @@ def cmpnet_decode_latents(model: CMPNet, hcode: torch.Tensor,
                              qmask)
     pad_ch = cfg.code_channels - cfg.valid_dim
     code_f = torch.nn.functional.pad(code_ext, (0, 0, 0, 0, 0, pad_ch))
-    tx = sphere_uslice(model.decoder(code_f, geom), geom)
+    tx = sphere_uslice(model.decoder(code_f, geom, cfg.tdtype), geom)
     return clip_data(tx)

@@ -3,7 +3,7 @@
 Module names mirror the JAX package's parameter-tree keys (which in turn
 mirror the reference's torch module names, model_zoo_v2.py), so a JAX tree
 flattens 1:1 onto a ``state_dict``:
-  conv:  nn.Conv2d  {"weight": (O, I, kh, kw), "bias": (O,)}, VALID padding
+  conv:  Conv2d    {"weight": (O, I, kh, kw), "bias": (O,)}, VALID padding
   prelu: nn.PReLU   {"weight": (C,)}
   gdn:   ops.gdn.GDN {"beta": (C,), "gamma": (C, C)}
 """
@@ -13,14 +13,32 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from pseudocylindrical_convolution_torch.ops.gdn import GDN
 
 
-def conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d whose forward takes the transform dtype.
+
+    ``dtype=None`` is nn.Conv2d's own fp32 forward. ``dtype=torch.bfloat16``
+    (the JAX package's ``conv2d(..., dtype=bfloat16)``, models/layers.py)
+    casts the input and the weight to bf16 and adds the bias in fp32. The
+    library conv returns bf16 for bf16 operands (it accumulates in fp32
+    inside), so each output is rounded to bf16 once before it is taken
+    back to fp32; XLA returns the fp32 sums themselves."""
+
+    def forward(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
+        if dtype is None:
+            return super().forward(x)
+        y = F.conv2d(x.to(dtype), self.weight.to(dtype), None, self.stride)
+        return y.float() + self.bias[None, :, None, None]
+
+
+def conv(cin: int, cout: int, k: int, stride: int = 1) -> Conv2d:
     """VALID conv (the pads are the sphere-aware pseudo_pad, done apart)."""
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=0)
+    return Conv2d(cin, cout, k, stride=stride, padding=0)
 
 
 def prelu(channels: int) -> nn.PReLU:

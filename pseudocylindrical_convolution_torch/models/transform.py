@@ -4,9 +4,13 @@ Structural reference: model_zoo_v2.py:36-211; the port of the JAX
 package's ``models/transform.py`` (``encoder_apply``/``decoder_apply``) as
 nn.Modules. Every block sandwiches stock VALID convs between pseudo_pad and
 pseudo_fill; GDN/IGDN follow the reference's ResidualBlockDown/Up placement.
-The JAX package routes pad/fill/gdn through a band context
-(``ops/bandctx.py``); on one device that is a plain pass-through, so the
-blocks call the ops directly here.
+Each forward takes ``ctx``, a ``Geometry`` or a band context
+(``ops/bandctx.py``), and reaches pad, fill and GDN only through it: a
+``Geometry`` means all bands of each image (``GlobalBands``), and
+parallel/spatial.py passes a ``LocalBands`` so that each rank runs the
+same blocks on its own band block. ``dtype`` is the transform dtype (None
+for fp32, or torch.bfloat16: the convs and GDN's channel contraction take
+bf16 operands; models/layers.py::Conv2d).
 """
 
 from __future__ import annotations
@@ -14,12 +18,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pseudocylindrical_convolution_torch.geometry import Geometry
 from pseudocylindrical_convolution_torch.models.layers import conv, prelu
+from pseudocylindrical_convolution_torch.ops.bandctx import as_band_ctx
 from pseudocylindrical_convolution_torch.ops.dtow import dtow
-from pseudocylindrical_convolution_torch.ops.fill import pseudo_fill
 from pseudocylindrical_convolution_torch.ops.gdn import GDN
-from pseudocylindrical_convolution_torch.ops.pad import pseudo_pad
 
 
 class ResidualBlock(nn.Module):                      # model_zoo_v2.py:36-53
@@ -31,10 +33,11 @@ class ResidualBlock(nn.Module):                      # model_zoo_v2.py:36-53
         self.relu2 = prelu(ch // 2)
         self.conv3 = conv(ch // 2, ch, 1)
 
-    def forward(self, x, geom: Geometry):
-        y = self.relu1(self.conv1(pseudo_pad(x, geom, 1)))
-        y = self.relu2(self.conv2(y))
-        return pseudo_fill(x + self.conv3(y), geom)
+    def forward(self, x, ctx, dtype=None):
+        ctx = as_band_ctx(ctx)
+        y = self.relu1(self.conv1(ctx.pad(x, 1), dtype))
+        y = self.relu2(self.conv2(y, dtype))
+        return ctx.fill(x + self.conv3(y, dtype))
 
 
 class AttentionBlock(nn.Module):                     # :55-76
@@ -46,15 +49,16 @@ class AttentionBlock(nn.Module):                     # :55-76
                                         for i in range(3)})
         self.attention["3"] = conv(ch, ch, 1)
 
-    def forward(self, x, geom: Geometry):
+    def forward(self, x, ctx, dtype=None):
+        ctx = as_band_ctx(ctx)
         t = x
         for i in range(3):
-            t = self.trunk[str(i)](t, geom)
+            t = self.trunk[str(i)](t, ctx, dtype)
         a = x
         for i in range(3):
-            a = self.attention[str(i)](a, geom)
-        a = torch.sigmoid(self.attention["3"](a))
-        return pseudo_fill(x + t * a, geom)
+            a = self.attention[str(i)](a, ctx, dtype)
+        a = torch.sigmoid(self.attention["3"](a, dtype))
+        return ctx.fill(x + t * a)
 
 
 class ResidualBlockV2(nn.Module):                    # :78-93
@@ -65,10 +69,11 @@ class ResidualBlockV2(nn.Module):                    # :78-93
         self.conv2 = conv(ch, ch, 3)
         self.relu2 = prelu(ch)
 
-    def forward(self, x, geom: Geometry):
-        y = self.relu1(self.conv1(pseudo_pad(x, geom, 2)))
-        y = self.relu2(self.conv2(y))
-        return pseudo_fill(x + y, geom)
+    def forward(self, x, ctx, dtype=None):
+        ctx = as_band_ctx(ctx)
+        y = self.relu1(self.conv1(ctx.pad(x, 2), dtype))
+        y = self.relu2(self.conv2(y, dtype))
+        return ctx.fill(x + y)
 
 
 class ResidualBlockDown(nn.Module):                  # :95-114
@@ -80,11 +85,12 @@ class ResidualBlockDown(nn.Module):                  # :95-114
         self.relu2 = GDN(ch)
         self.short_cut = conv(cin, ch, 1, stride=2)
 
-    def forward(self, x, geom: Geometry):
-        t = self.short_cut(x)
-        y = self.relu1(self.conv1(pseudo_pad(x, geom, 1)))
-        y = self.relu2(self.conv2(pseudo_pad(y, geom, 1)), geom)
-        return pseudo_fill(t + y, geom)
+    def forward(self, x, ctx, dtype=None):
+        ctx = as_band_ctx(ctx)
+        t = self.short_cut(x, dtype)
+        y = self.relu1(self.conv1(ctx.pad(x, 1), dtype))
+        y = self.relu2(self.conv2(ctx.pad(y, 1), dtype), ctx, dtype)
+        return ctx.fill(t + y)
 
 
 class SphereConv2(nn.Module):                        # :116-126
@@ -92,8 +98,9 @@ class SphereConv2(nn.Module):                        # :116-126
         super().__init__()
         self.conv = conv(cin, cout, 3, stride=2)
 
-    def forward(self, x, geom: Geometry):
-        return pseudo_fill(self.conv(pseudo_pad(x, geom, 1)), geom)
+    def forward(self, x, ctx, dtype=None):
+        ctx = as_band_ctx(ctx)
+        return ctx.fill(self.conv(ctx.pad(x, 1), dtype))
 
 
 class ResidualBlockUp(nn.Module):                    # :153-175
@@ -105,12 +112,13 @@ class ResidualBlockUp(nn.Module):                    # :153-175
         self.relu2 = GDN(ch, inverse=True)
         self.short_cut = conv(ch, ch * 4, 1)
 
-    def forward(self, x, geom: Geometry):
-        br1 = self.relu1(self.conv1(pseudo_pad(x, geom, 1)))
-        br1 = pseudo_pad(dtow(br1, 2, True), geom, 1)
-        br1 = self.relu2(self.conv2(br1), geom)
-        br2 = dtow(self.short_cut(x), 2, True)
-        return pseudo_fill(br1 + br2, geom)
+    def forward(self, x, ctx, dtype=None):
+        ctx = as_band_ctx(ctx)
+        br1 = self.relu1(self.conv1(ctx.pad(x, 1), dtype))
+        br1 = ctx.pad(dtow(br1, 2, True), 1)
+        br1 = self.relu2(self.conv2(br1, dtype), ctx, dtype)
+        br2 = dtow(self.short_cut(x, dtype), 2, True)
+        return ctx.fill(br1 + br2)
 
 
 class Encoder(nn.Module):
@@ -126,10 +134,11 @@ class Encoder(nn.Module):
             "6": ResidualBlockV2(c), "7": SphereConv2(c, c),
             "8": AttentionBlock(c), "9": conv(c, code_channels, 1)})
 
-    def forward(self, x, geom: Geometry):
+    def forward(self, x, ctx, dtype=None):
+        ctx = as_band_ctx(ctx)
         for i in range(9):
-            x = self.net[str(i)](x, geom)
-        return pseudo_fill(torch.sigmoid(self.net["9"](x)), geom)
+            x = self.net[str(i)](x, ctx, dtype)
+        return ctx.fill(torch.sigmoid(self.net["9"](x, dtype)))
 
 
 class _ConvHolder(nn.Module):
@@ -152,9 +161,10 @@ class Decoder(nn.Module):
             "8": ResidualBlockUp(c), "9": ResidualBlockV2(c),
             "11": conv(c, 12, 3)})
 
-    def forward(self, x, geom: Geometry):
-        x = pseudo_fill(self.net["0"].conv(x), geom)
+    def forward(self, x, ctx, dtype=None):
+        ctx = as_band_ctx(ctx)
+        x = ctx.fill(self.net["0"].conv(x, dtype))
         for i in range(1, 10):
-            x = self.net[str(i)](x, geom)
-        x = self.net["11"](pseudo_pad(x, geom, 1))
+            x = self.net[str(i)](x, ctx, dtype)
+        x = self.net["11"](ctx.pad(x, 1), dtype)
         return dtow(x, 2, True)

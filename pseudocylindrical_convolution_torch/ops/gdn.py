@@ -13,7 +13,7 @@ from torch import nn
 from pseudocylindrical_convolution_torch.geometry import Geometry
 from pseudocylindrical_convolution_torch.ops.fill import _fill_mask_t
 
-__all__ = ["GDN", "gdn_apply", "lower_bound"]
+__all__ = ["GDN", "gdn_apply", "gdn_masked", "lower_bound"]
 
 _REPARAM_OFFSET = 2.0 ** -18
 _PEDESTAL = _REPARAM_OFFSET ** 2
@@ -42,21 +42,37 @@ def lower_bound(x: torch.Tensor, bound: float) -> torch.Tensor:
     return LowerBound.apply(x, bound)
 
 
-def gdn_apply(beta: torch.Tensor, gamma: torch.Tensor, x: torch.Tensor,
-              geom: Geometry, inverse: bool = False) -> torch.Tensor:
-    """x: (N*npart, C, h, W)."""
-    nb, ch, h, w = x.shape
-    m = _fill_mask_t(geom, h, w, 0, 0, str(x.device))
-    mask = m.to(x.dtype).reshape(1, geom.npart, 1, h, w).expand(
-        nb // geom.npart, geom.npart, 1, h, w).reshape(nb, 1, h, w)
+def gdn_masked(beta: torch.Tensor, gamma: torch.Tensor, x: torch.Tensor,
+               mask: torch.Tensor, inverse: bool = False,
+               dtype=None) -> torch.Tensor:
+    """GDN of x (n, C, h, W) whose valid region is ``mask`` (n, 1, h, W).
+
+    With ``dtype=torch.bfloat16`` the channel contraction takes x^2 and
+    gamma in bf16 (its output rounded to bf16, then fp32); all else is
+    fp32, as in the JAX package's ``gdn_apply(..., dtype)``."""
     x = x * mask
     b = lower_bound(beta, _BETA_BOUND) ** 2 - _PEDESTAL
     g = lower_bound(gamma, _GAMMA_BOUND) ** 2 - _PEDESTAL
     # 1x1 conv on x^2: out[o] = sum_i gamma[o, i] * x2[i] + beta[o]
-    norm = torch.einsum("nihw,oi->nohw", x * x, g) + b[None, :, None, None]
-    norm = torch.sqrt(norm)
+    if dtype is None:
+        norm = torch.einsum("nihw,oi->nohw", x * x, g)
+    else:
+        norm = torch.einsum("nihw,oi->nohw", (x * x).to(dtype),
+                            g.to(dtype)).float()
+    norm = torch.sqrt(norm + b[None, :, None, None])
     norm = norm * mask + (1.0 - mask)
     return x * norm if inverse else x / norm
+
+
+def gdn_apply(beta: torch.Tensor, gamma: torch.Tensor, x: torch.Tensor,
+              geom: Geometry, inverse: bool = False,
+              dtype=None) -> torch.Tensor:
+    """x: (N*npart, C, h, W), all ``npart`` bands of N images."""
+    nb, ch, h, w = x.shape
+    m = _fill_mask_t(geom, h, w, 0, 0, str(x.device))
+    mask = m.to(x.dtype).reshape(1, geom.npart, 1, h, w).expand(
+        nb // geom.npart, geom.npart, 1, h, w).reshape(nb, 1, h, w)
+    return gdn_masked(beta, gamma, x, mask, inverse, dtype)
 
 
 class GDN(nn.Module):
@@ -71,5 +87,6 @@ class GDN(nn.Module):
         self.gamma = nn.Parameter(torch.as_tensor(
             np.sqrt(gamma_init * np.eye(ch) + _PEDESTAL), dtype=torch.float32))
 
-    def forward(self, x: torch.Tensor, geom: Geometry) -> torch.Tensor:
-        return gdn_apply(self.beta, self.gamma, x, geom, self.inverse)
+    def forward(self, x: torch.Tensor, ctx, dtype=None) -> torch.Tensor:
+        """ctx: the block's ``ops.bandctx.BandCtx``."""
+        return ctx.gdn(self.beta, self.gamma, x, self.inverse, dtype)

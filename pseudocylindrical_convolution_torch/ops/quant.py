@@ -20,7 +20,9 @@ reference's three gradient paths (pseudo_quant_cuda.cu:196-298):
 
 As in the JAX package, both cotangent-free paths are divided by the
 leading dim N (= batch * npart) instead of the reference's raw sums, so a
-data-parallel mean equals the single-device gradient.
+data-parallel mean equals the single-device gradient. A rank that holds
+only some bands of an image passes ``norm``, the global tile count, so
+that the sum over the band ranks equals the single-device value.
 """
 
 from __future__ import annotations
@@ -91,19 +93,21 @@ def _levels_seq(weight: torch.Tensor) -> torch.Tensor:
 
 
 class PseudoQuant(torch.autograd.Function):
-    """Training quantizer: (x, weight, mask, top_alpha) -> (top, q, hist).
+    """Training quantizer: (x, weight, mask, top_alpha, norm) -> (top, q,
+    hist).
 
     x: (N, C, H, W); mask broadcastable (N, 1, H, W). ``top`` is the
     nearest level, ``q`` its index as float (both 0 outside the mask),
-    ``hist`` (C, bins) the negative usage histogram over N (no
-    gradient). See the module docstring for the backward."""
+    ``hist`` (C, bins) the negative usage histogram divided by ``norm``
+    (None: N; no gradient). See the module docstring for the backward."""
 
     @staticmethod
-    def forward(ctx, x, weight, mask, top_alpha=1e-4):
+    def forward(ctx, x, weight, mask, top_alpha=1e-4, norm=None):
         bins = weight.shape[1]
         top, q = _quantize(x, _levels_seq(weight), mask)
         onehot = torch.nn.functional.one_hot(q, bins).to(x.dtype)
-        hist = -(onehot * mask[..., None]).sum(dim=(0, 2, 3)) / x.shape[0]
+        ctx.norm = x.shape[0] if norm is None else norm
+        hist = -(onehot * mask[..., None]).sum(dim=(0, 2, 3)) / ctx.norm
         ctx.save_for_backward(x, weight, mask, top, q)
         ctx.top_alpha = top_alpha
         ctx.mark_non_differentiable(hist)
@@ -119,7 +123,7 @@ class PseudoQuant(torch.autograd.Function):
             err = (top - x) * mask
             sel = (q[..., None] >= torch.arange(bins, device=q.device)
                    ).to(x.dtype)
-            wgrad = (err[..., None] * sel).sum(dim=(0, 2, 3)) / x.shape[0]
+            wgrad = (err[..., None] * sel).sum(dim=(0, 2, 3)) / ctx.norm
             wgrad = wgrad * torch.cat([torch.ones_like(gaps[:, :1]),
                                        gaps[:, 1:]], dim=1)
         dx = None
@@ -136,7 +140,7 @@ class PseudoQuant(torch.autograd.Function):
                                torch.where(top > x, beta_gt, beta_eq))
             beta = beta.clamp_min(0.001)
             dx = (g_top + ctx.top_alpha * g_q / beta) * mask
-        return dx, wgrad, None, None
+        return dx, wgrad, None, None, None
 
 
 def quant_update_weight(weight: torch.Tensor, count: torch.Tensor,

@@ -10,9 +10,8 @@ proxy.
       --img-dir D --list train.txt --out train_val.dic [--model m.pkl ...]
 
 With ``--model`` each image goes through the port's dense encoder
-(``codec/pipeline.py::encode_images``) with the transforms in fp32, on
-``--device`` (the card by default). The JAX package runs its transforms in
-bf16 there, so the two give slightly different scores.
+(``codec/pipeline.py::encode_images``) with bf16 transforms, as in the JAX
+package, on ``--device`` (the card by default).
 """
 
 from __future__ import annotations
@@ -33,9 +32,10 @@ def gradient_energy(img: np.ndarray) -> float:
 
 
 def model_scores(names, img_dir: str, model_path: str, valid_dim: int,
-                 device="cuda") -> dict:
+                 device="cuda", transform_dtype: str = "bfloat16") -> dict:
     """{name (.npy -> .png): encoded bpp} under the model at
-    ``model_path``, dense mode."""
+    ``model_path``, dense mode, with the transforms in
+    ``transform_dtype``."""
     from pseudocylindrical_convolution_torch.codec.pipeline import (
         encode_images)
     from pseudocylindrical_convolution_torch.models.cmpnet import (
@@ -43,7 +43,7 @@ def model_scores(names, img_dir: str, model_path: str, valid_dim: int,
     from pseudocylindrical_convolution_torch.train.dataset import load_image
     from pseudocylindrical_convolution_torch.utils.checkpoint import (
         load_model)
-    cfg = CMPNetConfig(valid_dim=valid_dim)
+    cfg = CMPNetConfig(valid_dim=valid_dim, transform_dtype=transform_dtype)
     geom = cfg.geometry()
     model = load_model(model_path, cfg, device)
     scores = {}

@@ -7,6 +7,14 @@ best/latest checkpoints are the reference's; the epoch permutation is the
 JAX package's (``RandomState(seed + epoch)``), so both visit the images in
 one order. Runs on the card unless ``--device cpu`` is given.
 
+Data-parallel as in the JAX package (``train/loop.py``): on the card,
+``run`` uses n ranks, n the largest count of cards that divides
+``--batch-size``; with n > 1 it starts n processes, one per card, joined
+by NCCL, each training on its slice of every micro-batch. In a process
+that already belongs to a process group (``torch.distributed``), ``run``
+trains as this rank of that group. Every rank reads the same images in
+the same order; rank 0 alone logs, validates and saves.
+
   python -m pseudocylindrical_convolution_torch.train.loop --valid-dim 192 \
       --alpha 1 --img-dir D --train-list train.txt --test-list test.txt
 
@@ -18,14 +26,18 @@ the subtrees of a parameter file whose shapes match.
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pseudocylindrical_convolution_torch.models.cmpnet import (
     CMPNet, CMPNetConfig)
+from pseudocylindrical_convolution_torch.parallel.mesh import (
+    free_port, make_mesh, shard_train_step, spawn_ranks)
 from pseudocylindrical_convolution_torch.parallel.train import (
     LossWeights, create_train_state, make_eval_step, make_train_step)
 from pseudocylindrical_convolution_torch.train.dataset import (
@@ -93,11 +105,43 @@ def _adopt_matching(model: CMPNet, src: dict):
     return kept, skipped
 
 
+def n_ranks(batch_size: int, n_cards: int) -> int:
+    """The largest rank count <= n_cards that divides batch_size (so a
+    small batch still splits evenly; batch 1 on 8 cards runs on one)."""
+    n = max(1, n_cards)
+    while batch_size % n:
+        n -= 1
+    return n
+
+
+def _rank_main(rank: int, n: int, args, init_method: str) -> None:
+    """One rank of a data-parallel run on the card: card ``rank``."""
+    torch.cuda.set_device(rank)
+    make_mesh(n, "nccl", rank, init_method)
+    try:
+        run(argparse.Namespace(**{**vars(args), "device": f"cuda:{rank}"}))
+    finally:
+        dist.destroy_process_group()
+
+
 def run(args, on_step=None):
     """Train as ``args`` (``build_argparser``) say; returns the final
-    ``TrainState``. ``on_step(epoch, index, train_ent, state, metrics)``,
-    if given, runs after every step."""
+    ``TrainState`` (None in the process that started the ranks of a
+    multi-card run). ``on_step(epoch, index, train_ent, state,
+    metrics)``, if given, runs after every step of this process (the
+    ranks a multi-card run starts do not get it)."""
     dev = resolve_device(args.device)
+    if not dist.is_initialized() and dev.type == "cuda":
+        n = n_ranks(args.batch_size, torch.cuda.device_count())
+        if n > 1:
+            # a rank that fails ends the others, and every collective is
+            # bounded by the group's timeout, so a run has no deadline
+            spawn_ranks(_rank_main, n, (n, args,
+                                        f"tcp://localhost:{free_port()}"),
+                        timeout=None)
+            return None
+    group = make_mesh() if dist.is_initialized() else None
+    rank = dist.get_rank(group) if group is not None else 0
     pin_numerics()
     cfg = CMPNetConfig(valid_dim=args.valid_dim, channels=args.channels,
                        code_channels=args.code_dim, npart=args.npart,
@@ -111,8 +155,11 @@ def run(args, on_step=None):
               f"{args.valid_dim}_{args.npart}")
     if args.init:
         prefix += "_init"
-    os.makedirs(args.save_dir, exist_ok=True)
-    log = Logger(os.path.join(args.save_dir, f"{prefix}_log.txt"))
+    if rank == 0:
+        os.makedirs(args.save_dir, exist_ok=True)
+        log = Logger(os.path.join(args.save_dir, f"{prefix}_log.txt"))
+    else:
+        log = Logger(screen=False)
     resume_state = None
     if args.resume and os.path.exists(args.resume):
         if is_train_state_file(args.resume):
@@ -134,11 +181,17 @@ def run(args, on_step=None):
     state = create_train_state(model.to(dev), args.lr)
     if resume_state is not None:
         restore_train_state(state, resume_state)
-    step = make_train_step(cfg, geom, lw, acc_batch=args.acc_batch)
+    step_fn = make_train_step(cfg, geom, lw, acc_batch=args.acc_batch,
+                              group=group)
+    steps = {e: (shard_train_step(step_fn, group, e) if group is not None
+                 else functools.partial(step_fn, train_ent=e))
+             for e in (False, True)}
     eval_step = make_eval_step(cfg, geom, lw)
     # best-loss memory persists only across true resumes (a full train
     # state); a fresh or finetune run writes its own best files
-    saver = ModelSaver(args.save_dir, prefix, resume=resume_state is not None)
+    saver = (ModelSaver(args.save_dir, prefix,
+                        resume=resume_state is not None) if rank == 0
+             else None)
 
     train_ds = SphereDataset(args.img_dir, args.train_list)
     test_ds = SphereDataset(args.img_dir, args.test_list)
@@ -160,8 +213,8 @@ def run(args, on_step=None):
         for bi, macro in enumerate(batch_iterator(train_ds, idxs,
                                                   args.batch_size,
                                                   args.acc_batch)):
-            state, metrics = step(state, torch.as_tensor(macro, device=dev),
-                                  train_ent)
+            state, metrics = steps[train_ent](
+                state, torch.as_tensor(macro, device=dev))
             if on_step is not None:
                 on_step(epoch, bi, train_ent, state, metrics)
             # each logged float waits for the device; log every N steps
@@ -171,13 +224,15 @@ def run(args, on_step=None):
                         f"mse {float(metrics['mse']):.6f} "
                         f"ssim {1 - float(metrics['ssim_loss']):.3f} "
                         f"rate {float(metrics['rate']):.3f}")
-        ls = validate(eval_step, state.model, test_ds, test_idx,
-                      args.test_batch_size, args.valid_dim, log,
-                      beta=args.beta, device=dev)
-        log.log(saver.save(state.model, ls, state=state))
+        if rank == 0:
+            ls = validate(eval_step, state.model, test_ds, test_idx,
+                          args.test_batch_size, args.valid_dim, log,
+                          beta=args.beta, device=dev)
+            log.log(saver.save(state.model, ls, state=state))
         log.log(f"epoch {epoch} wall {time.perf_counter() - t_epoch:.1f}s")
-    save_params(state.model, os.path.join(args.save_dir,
-                                          f"{prefix}_final.pkl"))
+    if rank == 0:
+        save_params(state.model, os.path.join(args.save_dir,
+                                              f"{prefix}_final.pkl"))
     log.close()
     return state
 

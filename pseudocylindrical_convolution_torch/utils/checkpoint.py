@@ -14,6 +14,11 @@ kind of pickle, holding the parameter tree, the quantizer's ``count``,
 both Adam states as numpy and the step, under a marker key. A train state
 of the JAX package names optax classes and is refused by name.
 
+``save_params_dcp``/``load_params_dcp`` keep a model or a whole train
+state in ``torch.distributed.checkpoint``'s directory format (the JAX
+package's ``save_params_orbax``/``load_params_orbax``): in one process,
+or from every rank of a process group at once.
+
 The reference ships split checkpoints ``{idx}_{ch}_{encoder,decoder,ent}
 .pt`` merged at load (pseudo_codec.py:223-227); ``reference_to_params``
 maps those state dicts onto the parameter tree (the port's copy of the
@@ -35,7 +40,7 @@ from pseudocylindrical_convolution_torch.models.cmpnet import (
 __all__ = ["load_param_tree", "params_from_jax", "load_model",
            "params_to_tree", "save_params", "save_train_state",
            "load_train_state", "is_train_state_file", "restore_train_state",
-           "train_state_from_jax",
+           "train_state_from_jax", "save_params_dcp", "load_params_dcp",
            "ModelSaver", "load_torch_state_dict", "reference_to_params",
            "train_ent_to_fused"]
 
@@ -222,6 +227,73 @@ def train_state_from_jax(tree: dict, cfg: CMPNetConfig, lr: float = 1e-4,
                                   device=model.quant.weight.device)
     state.step = int(tree["step"])
     return state
+
+
+# ---------------------------------------------------------------------------
+# torch.distributed.checkpoint (the JAX package's orbax pair)
+# ---------------------------------------------------------------------------
+
+def _adam_by_name(opt, model) -> dict:
+    """{parameter name: {state key: tensor}} of an optimizer's state."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {names[id(p)]: dict(st) for p, st in opt.state.items()}
+
+
+def save_params_dcp(model_or_state, path: str) -> None:
+    """Write a ``CMPNet``'s parameters, or a whole ``TrainState``
+    (parameters, ``count``, both Adam states, step), as a
+    ``torch.distributed.checkpoint`` directory ``path``.
+
+    The counterpart of the JAX package's ``save_params_orbax``. In a
+    process group every rank calls it (the replicated tensors are written
+    once); without one it runs in this process alone."""
+    import torch.distributed.checkpoint as dcp
+    if isinstance(model_or_state, CMPNet):
+        sd = {"model": model_or_state.state_dict()}
+    else:
+        st = model_or_state
+        sd = {"model": st.model.state_dict(), "count": st.count,
+              "step": torch.tensor(int(st.step), dtype=torch.int64),
+              "opt_other": _adam_by_name(st.opt_other, st.model),
+              "opt_ent": _adam_by_name(st.opt_ent, st.model)}
+    dcp.save(sd, checkpoint_id=path)
+
+
+def load_params_dcp(path: str, model_or_state) -> None:
+    """Load a ``save_params_dcp`` directory into a ``CMPNet`` or a
+    ``TrainState`` of the same shapes, in place (a fresh train state takes
+    the saved Adam states and step as they were).
+
+    The counterpart of the JAX package's ``load_params_orbax``, which
+    returns a new tree: torch checkpoints load into existing tensors."""
+    import torch.distributed.checkpoint as dcp
+    if isinstance(model_or_state, CMPNet):
+        dcp.load({"model": model_or_state.state_dict()}, checkpoint_id=path)
+        return
+    st = model_or_state
+    saved = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    sd = {"model": st.model.state_dict(), "count": st.count,
+          "step": torch.zeros((), dtype=torch.int64)}
+    names = [n for n, _ in st.model.named_parameters()]
+    for key in ("opt_other", "opt_ent"):
+        sd[key] = {}
+        for n in names:
+            pre = f"{key}.{n}."
+            for k, meta in saved.items():
+                if k.startswith(pre) and "." not in k[len(pre):]:
+                    sd[key].setdefault(n, {})[k[len(pre):]] = torch.empty(
+                        meta.size, dtype=meta.properties.dtype)
+    dcp.load(sd, checkpoint_id=path)
+    st.step = int(sd["step"])
+    ids = {id(p): n for n, p in st.model.named_parameters()}
+    for key in ("opt_other", "opt_ent"):
+        opt = getattr(st, key)
+        # a torch optimizer's state_dict numbers its parameters in order
+        index = {ids[id(q)]: i for i, q in enumerate(
+            q for g in opt.param_groups for q in g["params"])}
+        opt.load_state_dict({
+            "state": {index[n]: v for n, v in sd[key].items()},
+            "param_groups": opt.state_dict()["param_groups"]})
 
 
 class ModelSaver:
